@@ -1,0 +1,119 @@
+"""Encode point clouds: octree partition + batched block compression.
+
+Same argv as ``pcc_geo_cnn_v2_tpu.cli.compress`` plus ``--device``:
+gzipped bitstreams per input, ``.enc.metric.json`` sidecars, optional
+merged decode via ``--dec_files``. The port runs the device threshold
+sweep for d1 metrics without normals; other modes are not ported yet.
+
+    python -m pcc_geo_cnn_v2_tpu_torch.cli.compress --input_files in.ply \
+        --output_files out.bin --checkpoint_dir \
+        pcc_geo_cnn_v2_tpu/assets/bench_c3p.msgpack.gz --model_config c3p \
+        --resolution 1024 --octree_level 4
+"""
+
+from __future__ import annotations
+
+import argparse
+import gzip
+import json
+import logging
+import os
+
+import numpy as np
+
+from pcc_geo_cnn_v2_tpu_torch.cli.common import (
+    add_model_args,
+    build_model_from_args,
+    load_params,
+)
+from pcc_geo_cnn_v2_tpu_torch.codec import BlockCodec
+from pcc_geo_cnn_v2_tpu_torch.coding.syntax import save_compressed_file
+from pcc_geo_cnn_v2_tpu_torch.ops.threshold_sweep import D1_METRICS
+from pcc_geo_cnn_v2_tpu_torch.utils import pc_io
+from pcc_geo_cnn_v2_tpu_torch.utils.octree import partition_octree
+
+logger = logging.getLogger(__name__)
+
+
+def _dedup_voxels(p):
+    """Unique integer voxel coordinates (first occurrence kept): the
+    sweep's point lists must match the occupancy grids exactly."""
+    p = p.copy()
+    p[:, :3] = np.round(p[:, :3])
+    _, idx = np.unique(p[:, :3], axis=0, return_index=True)
+    return p[np.sort(idx)] if len(idx) < len(p) else p
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
+    parser = argparse.ArgumentParser(
+        prog="compress", description="Compress point clouds.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    parser.add_argument("--input_files", nargs="+", required=True)
+    parser.add_argument("--output_files", nargs="+", required=True,
+                        help="One per input x opt-metric (when several).")
+    parser.add_argument("--input_normals", nargs="+",
+                        help="d2 metrics: not ported yet.")
+    parser.add_argument("--dec_files", nargs="*",
+                        help="Write merged-decode PLYs at encode time.")
+    parser.add_argument("--checkpoint_dir", required=True,
+                        help="A .msgpack.gz weight asset.")
+    add_model_args(parser)
+    parser.add_argument("--opt_metrics", nargs="+", default=["d1_mse"])
+    parser.add_argument("--max_deltas", nargs="+", default=[np.inf],
+                        type=float)
+    parser.add_argument("--fixed_threshold", action="store_true",
+                        help="Not ported yet.")
+    parser.add_argument("--resolution", type=int, default=64)
+    parser.add_argument("--octree_level", type=int, default=4)
+    parser.add_argument("--batch_blocks", type=int, default=32)
+    parser.add_argument("--threshold_mode", default="auto",
+                        choices=["auto", "device"],
+                        help="The port always sweeps on the device.")
+    args = parser.parse_args(argv)
+
+    if args.input_normals or args.fixed_threshold:
+        parser.error("--input_normals / --fixed_threshold are not ported yet")
+    bad = [m for m in args.opt_metrics if m not in D1_METRICS]
+    if bad:
+        parser.error(f"only d1 metrics are ported: {bad}")
+    files_mult = len(args.opt_metrics) if len(args.opt_metrics) > 1 else 1
+    assert files_mult * len(args.input_files) == len(args.output_files)
+    if args.dec_files:
+        assert files_mult * len(args.input_files) == len(args.dec_files)
+
+    model = build_model_from_args(args)
+    codec = BlockCodec(model, load_params(args.checkpoint_dir),
+                       block_size=args.resolution // (2 ** args.octree_level),
+                       batch_blocks=args.batch_blocks, device=args.device)
+    points = [_dedup_voxels(p) for p in pc_io.load_points(args.input_files)]
+    for i, (infile, pts) in enumerate(zip(args.input_files, points)):
+        blocks, binstr = partition_octree(
+            pts, [0, 0, 0], [args.resolution] * 3, args.octree_level)
+        logger.info("%s: %d blocks", infile, len(blocks))
+        data_list, metadata = codec.compress_blocks_device_opt(
+            blocks, binstr, pts, args.resolution, args.octree_level,
+            opt_metrics=tuple(args.opt_metrics),
+            max_deltas=tuple(args.max_deltas))
+        assert len(data_list) == files_mult, (
+            f"{len(data_list)} metric groups != {files_mult} output files")
+        outs = [args.output_files[i * files_mult + j]
+                for j in range(files_mult)]
+        for j, (of, payload, meta) in enumerate(zip(outs, data_list,
+                                                    metadata)):
+            os.makedirs(os.path.dirname(of) or ".", exist_ok=True)
+            with gzip.open(of, "wb") as f:
+                f.write(save_compressed_file(binstr, payload,
+                                             args.resolution,
+                                             args.octree_level))
+            with open(of + ".enc.metric.json", "w") as f:
+                json.dump({k: v for k, v in meta["metrics"].items()
+                           if np.isfinite(v)}, f, sort_keys=True, indent=4)
+            if args.dec_files:
+                pc_io.write_ply(args.dec_files[i * files_mult + j],
+                                meta["blocks_full"][:, :3])
+        logger.info("%s done -> %s", infile, ", ".join(outs))
+
+
+if __name__ == "__main__":
+    main()
