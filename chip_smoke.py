@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship path once on one NVIDIA GPU.
+"""Drive the PyTorch port's encode / decode paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases (each passes or ends the run with a non-zero exit):
+Everything runs on one 10-bit ``figure_cloud`` with normals, partitioned
+at octree level 4, model c3p at full width (64 filters, f32) with the
+committed ``bench_c3p.msgpack.gz`` weights, ``batch_blocks=32``. Phases
+(each passes or ends the run with a non-zero exit):
 
 1. Print the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions; build every kernel of ``pcc_geo_cnn_v2_tpu_torch/csrc`` (one
@@ -17,19 +20,40 @@ Phases (each passes or ends the run with a non-zero exit):
 3. K2 (bounded halo EDT + D1 sums) against its plain version: B = 64,
    halo = 12, 64 blocks of halo volumes assembled from that cloud: sum, n,
    unres_cnt and the packed outlier bytes equal.
-4. Main path: a 10-bit ``figure_cloud`` partitioned at octree level 4,
-   model c3p at full width (64 filters, f32) with the committed
-   ``bench_c3p.msgpack.gz`` weights; ``compress_blocks_device_opt`` →
-   container → ``decompress_blocks`` at ``batch_blocks=32``. The decoded
-   blocks must equal the encoder's embedded reconstruction bit for bit,
-   the encoder's device D1 PSNR must equal a host KD-tree D1 PSNR of the
-   decoded cloud, and every kernel must have launched in this phase.
+4. K3 (bucket sweep with point-to-plane terms) against its plain version
+   on the first chunk at K = 32768 and on the overflowing blocks at
+   K = B³: colsum / candmin equal K1's and the plain version's, candplane
+   equal, colplane within ``npts · 2^-20 + 1e-6 · |value|`` (the kernel
+   sums plane² in 2^-20 fixed point), two launches bit-identical, equal
+   picks for ``("d1_mse", "d2_mse")``.
+5. K5 (exact-EDT sweep sums) against its plain version on the first
+   chunk: ab, ba, cnt equal for every threshold — with the point lists
+   (sparse tail outside the kernel, the main path's call) and without
+   (the kernel computes every threshold) — and picks equal to the bucket
+   backend's.
+6. d1 path: ``compress_blocks_device_opt`` → container →
+   ``decompress_blocks``. The decoded blocks must equal the encoder's
+   embedded reconstruction bit for bit, the encoder's device D1 PSNR must
+   equal a host KD-tree D1 PSNR of the decoded cloud, K1 and K2 must have
+   launched.
+7. Path A, D2 encode with normals: ``opt_metrics=("d1_mse", "d2_mse"),
+   with_normals=True`` → two containers, each decoded bit-exactly; the d1
+   stream's bytes equal phase 6's; point by point, every neighbour the
+   encoder's D2 metric took (both directions) is a point of the other
+   cloud at the host KD-tree's nearest distance, and the host oracle's
+   own formulas over those neighbours give the encoder's D2 sums and PSNR
+   (1e-6 relative); against the oracle's KD-tree neighbours, which differ
+   at distance ties only, the D2 PSNR is within 1 dB (see
+   ``D2_PSNR_TOL_DB``); K3 and K2 launched, K1 not.
+8. Path B, ``sweep_backend="pallas"``: d1 encode → decode, bit-exact,
+   stream bytes equal phase 6's; K5 and K2 launched, K1 and K3 not.
 
-Prints a ``kernels`` JSON line (per kernel: launches on the main path,
-max error against the plain version, its median time, the plain time and
-the least time the card could take for the same work), the card line, and
-last ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
-non-zero and prints no result.
+The launch counts are set to 0 just before each of the three paths and
+read just after. Prints a ``kernels`` JSON line (per kernel: launches on
+its path, max error against the plain version, its median time, the plain
+time and the least time the card could take for the same work), the card
+line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device it
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -52,13 +76,37 @@ HALO, HALO_BATCH = 12, 64
 # H100 SXM published peaks: HBM3 bytes/s, and int32 operations/s on the
 # CUDA cores. The data sheet's 67 TFLOP/s f32 counts an FMA as two
 # operations on 128 f32 lanes per SM; an SM has 64 int32 lanes, so the
-# int32 instruction rate is 67e12 / 2 / 2. Both kernels do integer work.
+# int32 instruction rate is 67e12 / 2 / 2. The kernels do integer work;
+# K3's few plane² evaluations count against the f32 rate.
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 67e12 / 4
+PEAK_F32_OPS_S = 67e12
 # int32 operations per (point, candidate) pair that K1's function needs:
 # 3 subtractions and 3 multiply(-add)s for d², the running min, the
-# column-sum add and the column min
+# column-sum add and the column min. K3 needs the same per pair, plus one
+# plane² (3 multiplies, 2 adds, 1 square: 6 f32 operations) per candidate
+# (candplane) and at least one per point (colplane)
 K1_OPS_PER_PAIR = 9
+K3_F32_OPS_PER_PLANE = 6
+# K5, int32 operations the function needs. cnt and ba of every threshold
+# come from one pass over the voxels (find the voxel's threshold bin, add 1
+# and dt_orig into it: 3 operations per voxel) and a cumulative sum over
+# the thresholds. The EDT is needed only at the thresholds t < t_end =
+# min(first_empty, t_small): there, per voxel, the compare and two
+# 2-operation column scans (5 operations); plus, per occupied voxel with
+# result D, the ~pi D lattice points of its disc search at 2 operations
+# (add, min) each — summed over voxels that is 2 pi ab
+K5_OPS_PER_VOXEL_ONCE = 3
+K5_OPS_PER_VOXEL_EDT = 5
+# Encoder-side D2 PSNR against the host KD-tree oracle. Both take true
+# nearest neighbours, but on an integer grid most neighbours at distance
+# > 0 are tied, the plane distance depends on which tied neighbour is
+# taken, and the EDT's scan order breaks ties another way than a KD-tree.
+# tests/test_d2_metrics.py allows 0.25 dB on jittered spheres; on a model
+# output (most points at distance 0, most of the others tied) the two
+# rules sit further apart, so the sharp check is made point by point
+# (check_d2_identities) and this bound only frames the tie effect
+D2_PSNR_TOL_DB = 1.0
 
 
 def log(msg):
@@ -72,11 +120,12 @@ def card_line():
         check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps):
+def time_ms(fn, reps, warm=True):
     """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events)."""
     import torch
 
-    fn()  # warm-up
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -89,10 +138,24 @@ def time_ms(fn, reps):
     return float(np.median(times))
 
 
-def bound(nbytes, ops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_INT32_OPS_S
+def bound(nbytes, ops, f32_ops=0):
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = ops / PEAK_INT32_OPS_S + f32_ops / PEAK_F32_OPS_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sweep_args(codec, pts, x_hat, K):
+    """K1 / K3 inputs for the blocks of ``x_hat`` at candidate budget
+    ``K``: (pts, pos, cnt0, cnt0 clamped to K, npts, K capped at B³)."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.ops import bucket_sweep as bsw
+
+    _, pos, cnt0, K = bsw.sorted_candidates(x_hat[..., 0], codec.thr_dev, K)
+    pts = pts.contiguous()
+    npts = (pts[:, :, 0] >= 0).sum(-1).to(torch.int32)
+    return pts, pos, cnt0, torch.clamp_max(cnt0, K), npts, K
 
 
 def check_k1(codec, pts, x_hat, K, reps=10, plain_reps=2):
@@ -104,10 +167,7 @@ def check_k1(codec, pts, x_hat, K, reps=10, plain_reps=2):
     from pcc_geo_cnn_v2_tpu_torch.ops import bucket_sweep as bsw
 
     xh = x_hat[..., 0]
-    _, pos, cnt0, K = bsw.sorted_candidates(xh, codec.thr_dev, K)
-    cnt0c = torch.clamp_max(cnt0, K)
-    pts = pts.contiguous()
-    npts = (pts[:, :, 0] >= 0).sum(-1).to(torch.int32)
+    pts, pos, cnt0, cnt0c, npts, K = sweep_args(codec, pts, x_hat, K)
     args = (pts, pos, cnt0c, npts, BLOCK)
     ks, km = bsw.bucket_colsums(*args)
     ps, pm = bsw.bucket_colsums_plain(*args)
@@ -180,6 +240,142 @@ def check_k2(occ, mask, origins):
                 bound_ms=bound_ms, bound_by=by)
 
 
+def check_k3(codec, pts, nrm, x_hat, K, reps=10, plain_reps=2):
+    """Phase 4: K3 vs its plain version and vs K1 on the blocks of
+    ``x_hat`` at candidate budget ``K``."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.ops import bucket_sweep as bsw
+
+    xh, nrm = x_hat[..., 0], nrm.contiguous()
+    pts, pos, _, cnt0c, npts, K = sweep_args(codec, pts, x_hat, K)
+    args = (pts, nrm, pos, cnt0c, npts, BLOCK)
+    got = bsw.bucket_colsums_d2(*args)
+    again = bsw.bucket_colsums_d2(*args)
+    ref = bsw.bucket_colsums_d2_plain(*args)
+    k1 = bsw.bucket_colsums(pts, pos, cnt0c, npts, BLOCK)
+    torch.cuda.synchronize()
+    valid = torch.arange(K, device=pos.device)[None, :] < cnt0c[:, None]
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "K3: two launches differ"
+    for name, a, b, c in (("colsum", got[0], ref[0], k1[0]),
+                          ("candmin", got[1], ref[1], k1[1])):
+        assert torch.equal(a[valid], b[valid]), f"K3 {name} != plain"
+        assert torch.equal(a[valid], c[valid]), f"K3 {name} != K1"
+    err_cand = float((got[3] - ref[3])[valid].abs().max())
+    assert err_cand == 0, f"K3 candplane differs from plain ({err_cand})"
+    diff = (got[2].double() - ref[2].double()).abs()
+    tol = npts[:, None].double() * 2.0 ** -20 + 1e-6 * ref[2].double().abs()
+    err_col = float(diff[valid].max())
+    assert bool((diff <= tol)[valid].all()), \
+        f"K3 colplane beyond its tolerance (max err {err_col})"
+    sel = dict(thresholds=codec.thr_dev, K=K,
+               opt_metrics=("d1_mse", "d2_mse"), nrm=nrm)
+    pk, ok = bsw.select_thresholds_d1_bucket(xh, pts, **sel)
+    pp, op = bsw.select_thresholds_d1_bucket(
+        xh, pts, colsums_d2_fn=bsw.bucket_colsums_d2_plain, **sel)
+    assert torch.equal(pk, pp) and torch.equal(ok, op), "K3 picks differ"
+    ms = time_ms(lambda: bsw.bucket_colsums_d2(*args), reps=reps)
+    plain_ms = time_ms(lambda: bsw.bucket_colsums_d2_plain(*args),
+                       reps=plain_reps)
+    shape = pos.shape
+    fill_ms = time_ms(lambda: (
+        torch.zeros(shape, dtype=torch.int64, device=pos.device),
+        torch.zeros(shape, dtype=torch.int64, device=pos.device),
+        torch.full(shape, -1, dtype=torch.int32, device=pos.device),
+        torch.full(shape, 0, dtype=torch.int32, device=pos.device),
+        torch.zeros(shape, dtype=torch.float32, device=pos.device)),
+        reps=reps)
+    pairs = int((npts.to(torch.int64) * cnt0c.to(torch.int64)).sum())
+    planes = int(cnt0c.sum()) + int(npts.sum())
+    # points, normals, candidates and counts in; four [N, K] columns out
+    # (colsum 8 bytes, the others 4)
+    nbytes = (pts.numel() + nrm.numel() + pos.numel() + 2 * len(npts)) * 4 \
+        + pos.numel() * 20
+    bound_ms, by = bound(nbytes, K1_OPS_PER_PAIR * pairs,
+                         K3_F32_OPS_PER_PLANE * planes)
+    log(f"K3 ok at K = {K}: {len(npts)} blocks, {pairs} point-candidate "
+        f"pairs, d1 outputs equal K1's, candplane err 0, colplane max err "
+        f"{err_col:.3g} (values up to {float(ref[2][valid].max()):.4g}), "
+        f"two launches bit-identical, {ms:.3f} ms of which output fills "
+        f"{fill_ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.3f} "
+        f"ms by {by})")
+    return dict(max_abs_err=err_col, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, fill_ms=fill_ms)
+
+
+def sweep_kernel_ms(codec, pts, nrm, x_hat, K):
+    """(K1 ms, K3 ms) of one launch each on these blocks at budget ``K``:
+    the per-launch times that add up to a cloud's sweep."""
+    from pcc_geo_cnn_v2_tpu_torch.ops import bucket_sweep as bsw
+
+    pts, pos, _, cnt0c, npts, _ = sweep_args(codec, pts, x_hat, K)
+    nrm = nrm.contiguous()
+    return (time_ms(lambda: bsw.bucket_colsums(pts, pos, cnt0c, npts, BLOCK),
+                    reps=3),
+            time_ms(lambda: bsw.bucket_colsums_d2(pts, nrm, pos, cnt0c, npts,
+                                                  BLOCK), reps=3))
+
+
+def check_k5(codec, pts, x_hat):
+    """Phase 5: K5 vs its plain version on one canonical chunk, and its
+    picks vs the bucket backend's."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.ops import edt_sweep as es
+    from pcc_geo_cnn_v2_tpu_torch.ops.edt import squared_edt
+    from pcc_geo_cnn_v2_tpu_torch.ops.threshold_sweep import (
+        select_thresholds_d1_pallas,
+    )
+    from pcc_geo_cnn_v2_tpu_torch.ops.voxel import voxelize
+
+    xh = x_hat[..., 0].contiguous()
+    thr = codec.thr_dev
+    occ = voxelize(pts, BLOCK)[..., 0]
+    dt = squared_edt(occ > 0)
+    first_empty, t_small, _ = es.sweep_bounds(xh, thr, 256)
+    t_end = torch.minimum(first_empty, t_small)
+    t0 = time.time()
+    ref = es.d1_sweep_sums_plain(xh, occ, dt, thr)  # an EDT per threshold
+    torch.cuda.synchronize()
+    plain_full_s = time.time() - t0
+    main = es.d1_sweep_sums(xh, occ, thr, pts=pts)[:3]  # the path's call
+    alone = es.edt_sweep_sums(xh, occ, dt, thr)  # every t in the kernel
+    torch.cuda.synchronize()
+    err = max(float((g - r).abs().max())
+              for res in (main, alone) for g, r in zip(res, ref))
+    assert err == 0, f"K5 disagrees with its plain version (max err {err})"
+    # picks: the exact sweep against the bucket backend (K1, with its
+    # rerun at K = B³ for overflowed rows)
+    picks = select_thresholds_d1_pallas(occ, xh, thr, pts=pts)
+    bucket = codec._sweep(x_hat, pts, occ, ("d1_mse",), (np.inf,))
+    assert torch.equal(picks, bucket), "K5 picks differ from the bucket's"
+    call = lambda: es.edt_sweep_sums(xh, occ, dt, thr, t_end)
+    ms = time_ms(call, reps=5)
+    plain_ms = time_ms(lambda: es.d1_sweep_sums_plain(xh, occ, dt, thr,
+                                                      t_end), reps=1,
+                       warm=False)
+    n, T = xh.shape[0], thr.shape[0]
+    tidx = torch.arange(T, device=xh.device)[None, :]
+    ab_edt = torch.where(tidx < t_end[:, None], main[0], 0.0).double().sum()
+    ops = BLOCK ** 3 * (K5_OPS_PER_VOXEL_ONCE * n
+                        + K5_OPS_PER_VOXEL_EDT * int(t_end.sum())) \
+        + 2 * np.pi * float(ab_edt)
+    # x_hat (f32), dt_orig (int32) and occ (uint8) in; three [N, T] out
+    nbytes = n * BLOCK ** 3 * 9 + T * 4 + n * 8 + 3 * n * T * 4
+    bound_ms, by = bound(nbytes, ops)
+    log(f"K5 ok: {n} blocks x {T} thresholds, first_empty "
+        f"{int(first_empty.min())}..{int(first_empty.max())}, EDT on t < "
+        f"{int(t_end.min())}..{int(t_end.max())} ({int(t_end.sum())} "
+        f"(block, threshold) EDTs), ab/ba/cnt equal the "
+        f"plain version's for every t (with and without the sparse "
+        f"split), picks equal the bucket backend's; {ms:.3f} ms (plain "
+        f"{plain_ms:.3f} ms; plain with an EDT for every t "
+        f"{plain_full_s * 1e3:.0f} ms; bound {bound_ms:.3f} ms by {by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by)
+
+
 def host_d1_psnr(points, decoded, r):
     """Reference D1 PSNR with host KD-trees (both directions)."""
     from scipy.spatial import cKDTree
@@ -189,6 +385,67 @@ def host_d1_psnr(points, decoded, r):
     d_ba = cKDTree(a).query(b, workers=-1)[0] ** 2
     mse = max(d_ab.mean(), d_ba.mean())
     return 10 * np.log10(3.0 * r * r / mse)
+
+
+def check_d2_identities(codec, blocks, binstr, points6, dec_blocks, decoded,
+                        enc):
+    """Path A's D2 metric, point by point: recompute the neighbour
+    identities the encoder's metric takes (same function, same inputs),
+    require each to be a point of the other cloud at the KD-tree's nearest
+    distance, and require the host oracle's formulas over exactly those
+    neighbours to give the encoder's metric dict ``enc``. Returns the
+    share of decoded points at distance > 0 whose nearest original is
+    tied."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from pcc_geo_cnn_v2_tpu_torch.ops import cloud_metrics as cm
+    from pcc_geo_cnn_v2_tpu_torch.ops.voxel import (
+        pack_attrs,
+        packbits,
+        voxelize,
+    )
+    from pcc_geo_cnn_v2_tpu_torch.utils.metrics import (
+        metrics_from_nn,
+        nn_maps_from_identities,
+    )
+    from pcc_geo_cnn_v2_tpu_torch.utils.octree import block_origins
+
+    def budget(bl):
+        return max(int(2 ** np.ceil(np.log2(max(len(b) for b in bl)))), 64)
+
+    n, dev = len(blocks), codec.device
+    origins = np.stack(block_origins(binstr, [0, 0, 0], [RESOLUTION] * 3,
+                                     LEVEL))
+    a_pts = torch.as_tensor(cm.pack_point_lists(blocks, budget(blocks)),
+                            device=dev)
+    b_pts = torch.as_tensor(
+        cm.pack_point_lists(dec_blocks, budget(dec_blocks)), device=dev)
+    b_packed = packbits((voxelize(b_pts, BLOCK)[..., 0] > 0).reshape(n, -1))
+    ident = cm.blockwise_nn_identities(
+        a_pts, pack_attrs(blocks, [3, 4, 5], budget(blocks)), b_packed,
+        dec_blocks, origins, BLOCK, points6, halo=codec.halo_width,
+        batch=codec.halo_batch)
+    a_glob, _, a_tgt, b_glob, b_tgt = ident
+    pts = points6[:, :3]
+    idx1, idx2 = nn_maps_from_identities(pts, decoded, a_glob, a_tgt, b_glob,
+                                         b_tgt)
+    d_ab = cKDTree(decoded).query(pts, workers=-1)[0]
+    d_ba = cKDTree(pts).query(decoded, k=2, workers=-1)[0]
+    assert np.array_equal(((pts - decoded[idx2]) ** 2).sum(1),
+                          np.rint(d_ab ** 2)), \
+        "an original's neighbour is not a nearest decoded point"
+    assert np.array_equal(((decoded - pts[idx1]) ** 2).sum(1),
+                          np.rint(d_ba[:, 0] ** 2)), \
+        "a decoded point's neighbour is not a nearest original"
+    # the encoder's AB normals ride as f32
+    same = metrics_from_nn(pts, decoded, RESOLUTION - 1, idx1, idx2,
+                           p1_n=points6[:, 3:6].astype(np.float32))
+    for key, want in same.items():
+        assert np.isclose(enc[key], want, rtol=1e-6, atol=0), \
+            (key, enc[key], want)
+    far = d_ba[:, 0] > 0
+    return float((far & (d_ba[:, 0] == d_ba[:, 1])).sum() / max(far.sum(), 1))
 
 
 def main():
@@ -212,6 +469,7 @@ def run(device):
     from pcc_geo_cnn_v2_tpu_torch.native import load_host_lib
     from pcc_geo_cnn_v2_tpu_torch.ops import kernels
     from pcc_geo_cnn_v2_tpu_torch.ops.voxel import flatten_blocks, pack_coords
+    from pcc_geo_cnn_v2_tpu_torch.utils.metrics import compute_metrics
     from pcc_geo_cnn_v2_tpu_torch.utils.octree import (
         block_origins,
         departition_octree,
@@ -236,89 +494,195 @@ def run(device):
                 log(f"  ptxas {name}: {line.strip()}")
 
     t0 = time.time()
-    points = figure_cloud(CLOUD_SEED, RESOLUTION, with_normals=False)
-    blocks, binstr = partition_octree(points, [0, 0, 0], [RESOLUTION] * 3,
+    points, normals = figure_cloud(CLOUD_SEED, RESOLUTION, with_normals=True)
+    points6 = np.hstack([points, normals])
+    blocks, binstr = partition_octree(points6, [0, 0, 0], [RESOLUTION] * 3,
                                       LEVEL)
-    log(f"cloud: {len(points)} points -> {len(blocks)} blocks of "
-        f"{BLOCK}^3 ({time.time() - t0:.1f} s)")
-    model = build_model("c3p")
-    codec = BlockCodec(model, load_asset_tree(ASSET), block_size=BLOCK,
+    log(f"cloud: {len(points)} points with normals -> {len(blocks)} blocks "
+        f"of {BLOCK}^3 ({time.time() - t0:.1f} s)")
+    params = load_asset_tree(ASSET)
+    codec = BlockCodec(build_model("c3p"), params, block_size=BLOCK,
                        batch_blocks=BATCH, device=device)
 
-    # phases 2-3 inputs: the canonical chunks of the main path
+    # phases 2-5 inputs: the canonical chunks of the paths below
     budget = max(int(2 ** np.ceil(np.log2(max(len(b) for b in blocks)))),
                  64)
     flat, offsets = flatten_blocks(blocks)
     flat_dev = torch.as_tensor(pack_coords(flat, BLOCK), device=device)
-    occ, mask, over_pts, over_xh = [], [], [], []
+    nrm_dev = torch.as_tensor(flatten_blocks(
+        blocks, cols=(3, 4, 5), dtype=np.float32)[0], device=device)
+    occ, mask, over_pts, over_nrm, over_xh = [], [], [], [], []
+    share = {"chunks": np.zeros(2), "reruns": np.zeros(2), "n_reruns": 0}
     for lo in range(0, len(blocks), BATCH):
         hi = min(lo + BATCH, len(blocks))
         pts = codec.chunk_points(flat_dev, offsets, lo, hi, budget)
+        nrm = codec.chunk_normals(nrm_dev, offsets, lo, hi, budget)
         res = codec.encode_chunk(pts, hi - lo)
         if lo < HALO_BATCH:
             occ.append(res["occ"])
             mask.append(res["masks"][0])
         if lo == 0:
             k1 = check_k1(codec, pts, res["x_hat"], codec.bucket_k)
+            k3 = check_k3(codec, pts, nrm, res["x_hat"], codec.bucket_k)
+            k5 = check_k5(codec, pts, res["x_hat"])
         # the rows the codec re-sweeps at K = B³
         cnt0 = (res["x_hat"][:hi - lo].reshape(hi - lo, -1)
                 > codec.thr_dev[0]).sum(-1)
         rows = torch.nonzero(cnt0 > codec.bucket_k).flatten()
+        # this chunk's launch and its rerun's, as the codec batches them
+        share["chunks"] += np.array(sweep_kernel_ms(
+            codec, pts, nrm, res["x_hat"], codec.bucket_k))
+        if len(rows):
+            share["reruns"] += np.array(sweep_kernel_ms(
+                codec, pts[rows], nrm[rows], res["x_hat"][rows], BLOCK ** 3))
+            share["n_reruns"] += 1
         over_pts.append(pts[rows])
+        over_nrm.append(nrm[rows])
         over_xh.append(res["x_hat"][rows])
-    over_pts, over_xh = torch.cat(over_pts), torch.cat(over_xh)
+    over_pts, over_nrm, over_xh = (torch.cat(a).contiguous() for a in
+                                   (over_pts, over_nrm, over_xh))
     assert len(over_pts), "no block overflows: the rerun is not exercised"
-    k1["rerun"] = check_k1(codec, over_pts.contiguous(), over_xh,
-                           BLOCK ** 3, reps=3, plain_reps=1)
-    k1["max_abs_err"] = max(k1["max_abs_err"], k1["rerun"]["max_abs_err"])
+    k1["rerun"] = check_k1(codec, over_pts, over_xh, BLOCK ** 3, reps=3,
+                           plain_reps=1)
+    k3["rerun"] = check_k3(codec, over_pts, over_nrm, over_xh, BLOCK ** 3,
+                           reps=3, plain_reps=1)
+    for k in (k1, k3):
+        k["max_abs_err"] = max(k["max_abs_err"], k["rerun"]["max_abs_err"])
+    for i, (name, k) in enumerate((("K1", k1), ("K3", k3))):
+        chunks, reruns = share["chunks"][i], share["reruns"][i]
+        k["cloud_ms"] = {"chunks": float(chunks), "reruns": float(reruns)}
+        log(f"{name} over the whole cloud: {-(-len(blocks) // BATCH)} "
+            f"chunk launches {chunks:.3f} ms + {share['n_reruns']} rerun "
+            f"launches at K = B³ {reruns:.3f} ms: the reruns are "
+            f"{100 * reruns / (chunks + reruns):.1f}% of the kernel's time")
     origins = np.stack(block_origins(binstr, [0, 0, 0], [RESOLUTION] * 3,
                                      LEVEL))[:HALO_BATCH]
     k2 = check_k2(torch.cat(occ), torch.cat(mask), origins)
 
-    # phase 4: the main path, counted
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.time()
-    data_list, metadata = codec.compress_blocks_device_opt(
-        blocks, binstr, points, RESOLUTION, LEVEL)
-    blob = gzip.compress(save_compressed_file(binstr, data_list[0],
-                                              RESOLUTION, LEVEL))
-    t_enc = time.time() - t0
-    t0 = time.time()
-    res_, lvl_, binstr2, payload = load_compressed_file(
-        io.BytesIO(gzip.decompress(blob)))
-    dec = codec.decompress_blocks(payload)
-    torch.cuda.synchronize()
-    t_dec = time.time() - t0
-    counts = dict(kernels.launches)
-    dec_full = np.vstack(departition_octree(dec, binstr2, [0, 0, 0],
+    def container(payload):
+        # mtime fixed: equal payloads must give equal bytes
+        return gzip.compress(save_compressed_file(binstr, payload,
+                                                  RESOLUTION, LEVEL), mtime=0)
+
+    def decode(dec_codec, blob):
+        res_, lvl_, binstr2, payload = load_compressed_file(
+            io.BytesIO(gzip.decompress(blob)))
+        dec = dec_codec.decompress_blocks(payload)
+        return np.vstack(departition_octree(dec, binstr2, [0, 0, 0],
                                             [res_] * 3, lvl_))
-    enc_full = metadata[0]["blocks_full"]
-    assert dec_full.shape == enc_full.shape and np.array_equal(
-        dec_full, enc_full), "decoded blocks differ from the encoder's"
-    bpp = len(blob) * 8 / len(points)
+
+    def drive(enc_codec, **kw):
+        """One counted path: encode → containers → decode of each; every
+        decode must equal the encoder's embedded reconstruction."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.time()
+        data_list, metadata = enc_codec.compress_blocks_device_opt(
+            blocks, binstr, points6, RESOLUTION, LEVEL, **kw)
+        blobs = [container(payload) for payload in data_list]
+        torch.cuda.synchronize()
+        t_enc = time.time() - t0
+        t0 = time.time()
+        decoded = [decode(enc_codec, blob) for blob in blobs]
+        torch.cuda.synchronize()
+        t_dec = time.time() - t0
+        counts = dict(kernels.launches)
+        for dec_full, meta in zip(decoded, metadata):
+            enc_full = meta["blocks_full"]
+            assert dec_full.shape == enc_full.shape and np.array_equal(
+                dec_full, enc_full), "decoded blocks differ from the encoder's"
+        return blobs, metadata, decoded, counts, t_enc, t_dec
+
+    def expect_launches(path, counts, ran, idle):
+        for name in ran:
+            assert counts[name] > 0, f"{name} did not launch on {path}"
+        for name in idle:
+            assert counts[name] == 0, f"{name} launched on {path}"
+
+    # phase 6: the d1 path, counted
+    blobs, metadata, decoded, counts_d1, t_enc, t_dec = drive(codec)
+    blob_d1 = blobs[0]
+    bpp = len(blob_d1) * 8 / len(points)
     psnr = metadata[0]["metrics"]["d1_psnr"]
-    psnr_host = host_d1_psnr(points, dec_full, RESOLUTION - 1)
+    psnr_host = host_d1_psnr(points, decoded[0], RESOLUTION - 1)
     assert np.isfinite(psnr) and 0 < bpp < 8, (psnr, bpp)
     assert abs(psnr - psnr_host) < 1e-6, (psnr, psnr_host)
-    log(f"main path: {len(blocks)} blocks, {len(dec_full)} decoded points, "
+    log(f"d1 path: {len(blocks)} blocks, {len(decoded[0])} decoded points, "
         f"bit-exact; {bpp:.4f} bpp, D1 PSNR {psnr:.4f} dB (host KD-tree "
         f"{psnr_host:.4f}); encode {len(blocks) / t_enc:.2f} blocks/s "
         f"({t_enc:.2f} s), decode {len(blocks) / t_dec:.2f} blocks/s "
-        f"({t_dec:.2f} s); launches {counts}")
-    for name, n in counts.items():
-        assert n > 0, f"kernel {name} did not launch on the main path"
+        f"({t_dec:.2f} s); launches {counts_d1}")
+    expect_launches("the d1 path", counts_d1,
+                    ("bucket_colsums", "halo_edt"),
+                    ("bucket_colsums_d2", "edt_sweep"))
 
+    # phase 7: path A, D2 encode with normals on K3
+    blobs, metadata, decoded, counts_a, t_enc, t_dec = drive(
+        codec, opt_metrics=("d1_mse", "d2_mse"), with_normals=True)
+    assert len(blobs) == 2 and [m["idx"] for m in metadata] == [0, 1]
+    assert blobs[0] == blob_d1, "path A's d1 stream differs from the d1 path's"
+    d2 = metadata[1]["metrics"]
+    t0 = time.time()
+    host = compute_metrics(points, decoded[1], RESOLUTION - 1, p1_n=normals)
+    t_host = time.time() - t0
+    assert np.isfinite(d2["d2_psnr"]), d2
+    tied_share = check_d2_identities(codec, blocks, binstr, points6,
+                                     metadata[1]["x_hat_list"], decoded[1],
+                                     d2)
+    # equal d1 sums, and the tie effect framed
+    for key in ("d1_sum_AB", "d1_sum_BA"):
+        assert d2[key] == host[key], (key, d2[key], host[key])
+    assert abs(d2["d2_psnr"] - host["d2_psnr"]) < D2_PSNR_TOL_DB, \
+        (d2["d2_psnr"], host["d2_psnr"])
+    log(f"path A (d1_mse + d2_mse with normals): two streams, both "
+        f"bit-exact, d1 stream equals the d1 path's; d2 stream "
+        f"{len(blobs[1]) * 8 / len(points):.4f} bpp, {len(decoded[1])} "
+        f"decoded points, D2 PSNR {d2['d2_psnr']:.4f} dB: every neighbour "
+        f"of the {len(points)} + {len(decoded[1])} points is a true "
+        f"nearest one and the host oracle's formulas over them give the "
+        f"encoder's sums (AB {d2['d2_sum_AB']:.1f}, BA "
+        f"{d2['d2_sum_BA']:.1f}); the oracle over its KD-tree neighbours "
+        f"{host['d2_psnr']:.4f} dB (BA {host['d2_sum_BA']:.1f}, "
+        f"{t_host:.1f} s; {100 * tied_share:.1f}% of decoded points at "
+        f"distance > 0 tied); "
+        f"D1 PSNR {d2['d1_psnr']:.4f} dB; encode "
+        f"{len(blocks) / t_enc:.2f} blocks/s ({t_enc:.2f} s), decode of "
+        f"both {t_dec:.2f} s; launches "
+        f"{counts_a}")
+    expect_launches("path A", counts_a, ("bucket_colsums_d2", "halo_edt"),
+                    ("bucket_colsums", "edt_sweep"))
+
+    # phase 8: path B, the exact-EDT sweep backend on K5
+    codec_b = BlockCodec(build_model("c3p"), params, block_size=BLOCK,
+                         batch_blocks=BATCH, device=device,
+                         sweep_backend="pallas")
+    blobs, metadata, decoded, counts_b, t_enc, t_dec = drive(codec_b)
+    assert blobs[0] == blob_d1, "path B's stream differs from the d1 path's"
+    log(f"path B (sweep_backend='pallas', all {len(blocks)} blocks): "
+        f"bit-exact, stream bytes equal the bucket backend's; encode "
+        f"{len(blocks) / t_enc:.2f} blocks/s ({t_enc:.2f} s), decode "
+        f"{len(blocks) / t_dec:.2f} blocks/s ({t_dec:.2f} s); launches "
+        f"{counts_b}")
+    expect_launches("path B", counts_b, ("edt_sweep", "halo_edt"),
+                    ("bucket_colsums", "bucket_colsums_d2"))
+
+    by_path = {"d1": counts_d1, "A": counts_a, "B": counts_b}
     rows = []
-    for name, meta, src, tpu in (
-            ("bucket_colsums", k1, "csrc/bucket_colsums.cu",
+    for name, meta, path, src, tpu in (
+            ("bucket_colsums", k1, "d1", "csrc/bucket_colsums.cu",
              "pcc_geo_cnn_v2_tpu/ops/bucket_sweep.py:65"),
-            ("halo_edt", k2, "csrc/halo_edt.cu",
-             "pcc_geo_cnn_v2_tpu/ops/pallas_halo.py:43")):
+            ("halo_edt", k2, "d1", "csrc/halo_edt.cu",
+             "pcc_geo_cnn_v2_tpu/ops/pallas_halo.py:43"),
+            ("bucket_colsums_d2", k3, "A", "csrc/bucket_colsums_d2.cu",
+             "pcc_geo_cnn_v2_tpu/ops/bucket_sweep.py:121"),
+            ("edt_sweep", k5, "B", "csrc/edt_sweep.cu",
+             "pcc_geo_cnn_v2_tpu/ops/pallas_sweep.py:156")):
         rows.append({"name": name, "route": "cuda",
                      "source": f"pcc_geo_cnn_v2_tpu_torch/{src}",
-                     "replaces": tpu, "launches": counts[name], **meta,
-                     "library_ms": None})
+                     "replaces": tpu, "launches": by_path[path][name],
+                     "path": path, **meta, "library_ms": None,
+                     "launches_by_path": {k: v[name]
+                                          for k, v in by_path.items()}})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,21 @@
 """Encode point clouds: octree partition + batched block compression.
 
 Same argv as ``pcc_geo_cnn_v2_tpu.cli.compress`` plus ``--device``:
-gzipped bitstreams per input, ``.enc.metric.json`` sidecars, optional
-merged decode via ``--dec_files``. The port runs the device threshold
-sweep for d1 metrics without normals; other modes are not ported yet.
+gzipped bitstreams per (input × opt-metric group), ``.enc.metric.json``
+sidecars, optional merged decode via ``--dec_files``. The port runs the
+device threshold sweep: d1 metrics, and with ``--input_normals`` d2
+metrics too; the host-threshold modes are not ported yet.
 
     python -m pcc_geo_cnn_v2_tpu_torch.cli.compress --input_files in.ply \
         --output_files out.bin --checkpoint_dir \
         pcc_geo_cnn_v2_tpu/assets/bench_c3p.msgpack.gz --model_config c3p \
         --resolution 1024 --octree_level 4
+
+With normals (a PLY holding nx, ny, nz per point) and one d1 plus one d2
+opt metric, one output per metric:
+
+    ... --input_files in.ply --input_normals in_normals.ply \
+        --opt_metrics d1_mse d2_mse --output_files out_d1.bin out_d2.bin
 """
 
 from __future__ import annotations
@@ -28,8 +35,12 @@ from pcc_geo_cnn_v2_tpu_torch.cli.common import (
 )
 from pcc_geo_cnn_v2_tpu_torch.codec import BlockCodec
 from pcc_geo_cnn_v2_tpu_torch.coding.syntax import save_compressed_file
-from pcc_geo_cnn_v2_tpu_torch.ops.threshold_sweep import D1_METRICS
+from pcc_geo_cnn_v2_tpu_torch.ops.threshold_sweep import (
+    D1_METRICS,
+    D2_METRICS,
+)
 from pcc_geo_cnn_v2_tpu_torch.utils import pc_io
+from pcc_geo_cnn_v2_tpu_torch.utils.metrics import validate_opt_metrics
 from pcc_geo_cnn_v2_tpu_torch.utils.octree import partition_octree
 
 logger = logging.getLogger(__name__)
@@ -53,7 +64,8 @@ def main(argv=None):
     parser.add_argument("--output_files", nargs="+", required=True,
                         help="One per input x opt-metric (when several).")
     parser.add_argument("--input_normals", nargs="+",
-                        help="d2 metrics: not ported yet.")
+                        help="PLY files with nx ny nz per point; enables "
+                             "d2 opt metrics.")
     parser.add_argument("--dec_files", nargs="*",
                         help="Write merged-decode PLYs at encode time.")
     parser.add_argument("--checkpoint_dir", required=True,
@@ -72,11 +84,11 @@ def main(argv=None):
                         help="The port always sweeps on the device.")
     args = parser.parse_args(argv)
 
-    if args.input_normals or args.fixed_threshold:
-        parser.error("--input_normals / --fixed_threshold are not ported yet")
-    bad = [m for m in args.opt_metrics if m not in D1_METRICS]
-    if bad:
-        parser.error(f"only d1 metrics are ported: {bad}")
+    if args.fixed_threshold:
+        parser.error("--fixed_threshold is not ported yet")
+    with_normals = args.input_normals is not None
+    validate_opt_metrics(args.opt_metrics, with_normals=with_normals)
+    assert all(m in D1_METRICS + D2_METRICS for m in args.opt_metrics)
     files_mult = len(args.opt_metrics) if len(args.opt_metrics) > 1 else 1
     assert files_mult * len(args.input_files) == len(args.output_files)
     if args.dec_files:
@@ -86,7 +98,12 @@ def main(argv=None):
     codec = BlockCodec(model, load_params(args.checkpoint_dir),
                        block_size=args.resolution // (2 ** args.octree_level),
                        batch_blocks=args.batch_blocks, device=args.device)
-    points = [_dedup_voxels(p) for p in pc_io.load_points(args.input_files)]
+    points = pc_io.load_points(args.input_files)
+    if with_normals:
+        normals = [pc_io.read_ply(p, columns=["nx", "ny", "nz"])[0]
+                   for p in args.input_normals]
+        points = [np.hstack((p, n)) for p, n in zip(points, normals)]
+    points = [_dedup_voxels(p) for p in points]
     for i, (infile, pts) in enumerate(zip(args.input_files, points)):
         blocks, binstr = partition_octree(
             pts, [0, 0, 0], [args.resolution] * 3, args.octree_level)
@@ -94,7 +111,7 @@ def main(argv=None):
         data_list, metadata = codec.compress_blocks_device_opt(
             blocks, binstr, pts, args.resolution, args.octree_level,
             opt_metrics=tuple(args.opt_metrics),
-            max_deltas=tuple(args.max_deltas))
+            max_deltas=tuple(args.max_deltas), with_normals=with_normals)
         assert len(data_list) == files_mult, (
             f"{len(data_list)} metric groups != {files_mult} output files")
         outs = [args.output_files[i * files_mult + j]

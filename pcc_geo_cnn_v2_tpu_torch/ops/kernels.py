@@ -39,6 +39,13 @@ KERNELS = {
         "pcc_halo_edt": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _P],
     }),
+    "bucket_colsums_d2": ("bucket_colsums_d2.cu", {
+        "pcc_bucket_colsums_d2": [_P] * 10 + [_I, _I, _I, _I, _P],
+    }),
+    "edt_sweep": ("edt_sweep.cu", {
+        "pcc_edt_sweep": [_P] * 10 + [_I, _I, _I, _P],
+        "pcc_edt_sweep_group": [],
+    }),
 }
 
 launches = {name: 0 for name in KERNELS}

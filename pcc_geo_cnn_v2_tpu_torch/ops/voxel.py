@@ -12,19 +12,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["flatten_blocks", "pack_coords", "unpack_coords",
+__all__ = ["flatten_blocks", "pack_attrs", "pack_coords", "unpack_coords",
            "unflatten_points", "voxelize", "packbits", "unpackbits"]
 
 
-def flatten_blocks(blocks):
-    """Concatenate variable-length blocks' coordinates into one flat stream.
+def flatten_blocks(blocks, cols=(0, 1, 2), dtype=np.int16):
+    """Concatenate variable-length blocks' columns (coordinates by
+    default, e.g. ``cols=(3, 4, 5)`` for normals) into one flat stream.
 
-    :return: (flat [F, 3] int16, offsets [N+1] int32)
+    :return: (flat [F, len(cols)], offsets [N+1] int32)
     """
     offsets = np.zeros(len(blocks) + 1, np.int32)
     np.cumsum([len(b) for b in blocks], out=offsets[1:])
-    flat = np.concatenate([np.asarray(b)[:, :3] for b in blocks])
-    return flat.astype(np.int16), offsets
+    flat = np.concatenate([np.asarray(b)[:, list(cols)] for b in blocks])
+    return flat.astype(dtype), offsets
+
+
+def pack_attrs(blocks, cols, max_points, dtype=np.float32):
+    """Pad per-point attribute columns (e.g. normals) to a dense
+    [N, max_points, len(cols)] host batch, zero rows as padding."""
+    out = np.zeros((len(blocks), max_points, len(cols)), dtype)
+    for i, b in enumerate(blocks):
+        b = np.asarray(b)
+        m = min(len(b), max_points)
+        out[i, :m] = b[:m, cols]
+    return out
 
 
 def pack_coords(flat, size):
@@ -45,12 +57,12 @@ def unpack_coords(packed, size):
                         p & mask], dim=-1)
 
 
-def unflatten_points(flat, offs, n_blocks, budget):
+def unflatten_points(flat, offs, n_blocks, budget, fill=-1):
     """Inverse of :func:`flatten_blocks` for one chunk.
 
     :param flat: [F, C] stream (rows past ``offs[-1]`` are padding).
     :param offs: [n_blocks + 1] int block offsets into ``flat``.
-    :return: [n_blocks, budget, C] with -1 padding rows.
+    :return: [n_blocks, budget, C] with ``fill`` padding rows.
     """
     f, c = flat.shape
     i = torch.arange(f, dtype=offs.dtype, device=flat.device)
@@ -58,7 +70,7 @@ def unflatten_points(flat, offs, n_blocks, budget):
     keep = (b >= 0) & (b < n_blocks)
     b = b[keep].long()
     slot = (i[keep] - offs[b]).long()
-    out = torch.full((n_blocks, budget, c), -1, dtype=flat.dtype,
+    out = torch.full((n_blocks, budget, c), fill, dtype=flat.dtype,
                      device=flat.device)
     out[b, slot] = flat[keep]
     return out

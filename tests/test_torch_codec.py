@@ -8,7 +8,15 @@ into 16³ blocks:
 - the JAX exact sweep, fed the port's x_hat, picks the port's thresholds;
 - against JAX's own ``compress_blocks_device_opt``: bpp within 1% and
   D1 PSNR within 0.05 dB (conv sums differ in order between XLA and
-  ATen, which can flip borderline voxels).
+  ATen, which can flip borderline voxels);
+- with normals and a d1 + a d2 opt metric: the d1 stream is the stream of
+  a run without normals, both streams decode bit-exactly, the encoder's D2
+  PSNR agrees with the host oracle, the JAX D2 bucket sweep (Pallas
+  kernel in interpret mode), fed the port's x_hat, picks the port's
+  thresholds (|Δidx| ≤ 1 allowed only at a < 1e-5 relative near-tie of
+  the f32 plane sums, counted), and the JAX codec's own normals encode
+  gives the same groups, rate, D2 PSNR and picks;
+- the three sweep backends give identical d1 streams.
 """
 
 import gzip
@@ -22,6 +30,9 @@ import torch
 
 from pcc_geo_cnn_v2_tpu.codec import BlockCodec as JaxCodec
 from pcc_geo_cnn_v2_tpu.models.configs import build_model as jax_build
+from pcc_geo_cnn_v2_tpu.ops.bucket_sweep import (
+    select_thresholds_d1_bucket as jax_bucket_select,
+)
 from pcc_geo_cnn_v2_tpu.ops.threshold_sweep import select_thresholds_d1_batch
 from pcc_geo_cnn_v2_tpu_torch.codec import BlockCodec
 from pcc_geo_cnn_v2_tpu_torch.coding.syntax import (
@@ -29,7 +40,9 @@ from pcc_geo_cnn_v2_tpu_torch.coding.syntax import (
     save_compressed_file,
 )
 from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
+from pcc_geo_cnn_v2_tpu_torch.ops import bucket_sweep as tbs
 from pcc_geo_cnn_v2_tpu_torch.ops.voxel import flatten_blocks, pack_coords
+from pcc_geo_cnn_v2_tpu_torch.utils.metrics import compute_metrics
 from pcc_geo_cnn_v2_tpu_torch.utils.octree import partition_octree
 from pcc_geo_cnn_v2_tpu_torch.utils.scansim import figure_cloud
 
@@ -159,3 +172,189 @@ def test_cli_roundtrip(tmp_path, setup):
     assert len(dec) > 0
     np.testing.assert_array_equal(dec, enc)
     assert (tmp_path / "c.bin.enc.metric.json").exists()
+
+
+D2_KW = dict(opt_metrics=("d1_mse", "d2_mse"), with_normals=True)
+
+
+@pytest.fixture(scope="module")
+def setup_normals(setup):
+    """The same cloud with normals through the port's d1 + d2 encode."""
+    pts, nrm = figure_cloud(3, R, with_normals=True)
+    np.testing.assert_array_equal(pts, setup["pts"])
+    pts6 = np.hstack([pts, nrm])
+    blocks, binstr = partition_octree(pts6, [0, 0, 0], [R] * 3, LEVEL)
+    assert binstr == setup["binstr"]
+    data_list, metadata = setup["codec"].compress_blocks_device_opt(
+        blocks, binstr, pts6, R, LEVEL, **D2_KW)
+    return dict(pts6=pts6, blocks=blocks, binstr=binstr,
+                data_list=data_list, metadata=metadata)
+
+
+def _decode(params, binstr, payload):
+    blob = gzip.compress(save_compressed_file(binstr, payload, R, LEVEL))
+    payload = load_compressed_file(io.BytesIO(gzip.decompress(blob)))[3]
+    return BlockCodec(build_model(CFG), params, block_size=B,
+                      batch_blocks=BS, device="cpu").decompress_blocks(payload)
+
+
+def test_normals_encode_two_groups_roundtrip(setup, setup_normals):
+    s, sn = setup, setup_normals
+    assert [m["idx"] for m in sn["metadata"]] == [0, 1]
+    # the d1 group of a normals run is the run without normals
+    assert sn["data_list"][0] == s["data_list"][0]
+    assert sn["metadata"][0]["metrics"]["d1_psnr"] == \
+        s["metadata"][0]["metrics"]["d1_psnr"]
+    for payload, meta in zip(sn["data_list"], sn["metadata"]):
+        dec = _decode(s["params"], sn["binstr"], payload)
+        for d, e in zip(dec, meta["x_hat_list"]):
+            np.testing.assert_array_equal(d, e)
+    # encoder-side D2 against the host oracle on the decoded cloud; the
+    # tolerance of tests/test_d2_metrics.py (tie-broken neighbours)
+    m2 = sn["metadata"][1]["metrics"]
+    dec_full = sn["metadata"][1]["blocks_full"]
+    assert len(dec_full) > 0
+    host = compute_metrics(sn["pts6"][:, :3], dec_full, R - 1,
+                           p1_n=sn["pts6"][:, 3:6])
+    np.testing.assert_allclose(m2["d1_sum_AB"], host["d1_sum_AB"], rtol=1e-9)
+    np.testing.assert_allclose(m2["d1_sum_BA"], host["d1_sum_BA"], rtol=1e-9)
+    assert abs(m2["d2_psnr"] - host["d2_psnr"]) < 0.25
+
+
+def test_jax_d2_sweep_on_port_x_hat_gives_port_picks(setup, setup_normals):
+    """All chunks: the JAX D2 bucket sweep on the port's canonical x_hat
+    against the picks the port put into its two streams."""
+    s, sn = setup, setup_normals
+    codec, blocks = s["codec"], sn["blocks"]
+    flat, offsets = flatten_blocks(blocks)
+    budget = max(int(2 ** np.ceil(np.log2(max(len(b) for b in blocks)))),
+                 64)
+    flat_dev = torch.from_numpy(pack_coords(flat, B))
+    nrm_dev = torch.from_numpy(flatten_blocks(blocks, cols=(3, 4, 5),
+                                              dtype=np.float32)[0])
+    thr = jnp.asarray(codec.thresholds, jnp.float32)
+    port = np.array([[t for _, t in dl] for dl in sn["data_list"]]).T
+    near_ties = 0
+    for lo in range(0, len(blocks), BS):
+        hi = min(lo + BS, len(blocks))
+        pts = codec.chunk_points(flat_dev, offsets, lo, hi, budget)
+        nrm = codec.chunk_normals(nrm_dev, offsets, lo, hi, budget)
+        res = codec.encode_chunk(pts, hi - lo, D2_KW["opt_metrics"], nrm=nrm)
+        np.testing.assert_array_equal(res["picks"][:hi - lo].numpy(),
+                                      port[lo:hi])
+        want, ovf = jax_bucket_select(
+            jnp.asarray(res["x_hat"][..., 0].numpy()),
+            jnp.asarray(pts.numpy()), thr, opt_metrics=D2_KW["opt_metrics"],
+            K=B ** 3, interpret=True, nrm=jnp.asarray(nrm.numpy()))
+        assert not np.asarray(ovf).any()
+        got, want = port[lo:hi], np.asarray(want)[:hi - lo]
+        np.testing.assert_array_equal(got[:, 0], want[:, 0])
+        diff = np.nonzero(got[:, 1] != want[:, 1])[0]
+        if len(diff):  # allowed only at a near-tie of the d2_mse values
+            sums = tbs.bucket_sweep_sums(res["x_hat"][..., 0], pts,
+                                         codec.thr_dev, K=B ** 3, nrm=nrm)
+            n_orig = (pts[:, :, 0] >= 0).sum(-1).to(torch.float32)
+            mse = tbs.metrics_from_sums(sums[4], sums[5], n_orig[:, None],
+                                        sums[2], prefix="d2")["d2_mse"].numpy()
+        for i in diff:
+            a, b = int(got[i, 1]), int(want[i, 1])
+            assert abs(a - b) <= 1, (lo + i, a, b)
+            va, vb = float(mse[i, a]), float(mse[i, b])
+            assert abs(va - vb) <= 1e-5 * max(abs(va), abs(vb)), \
+                (lo + i, a, b, va, vb)
+        near_ties += len(diff)
+    print(f"d2 near-tie pick differences: {near_ties} of {len(blocks)}")
+    assert near_ties <= max(1, len(blocks) // 50)
+
+
+def test_normals_encode_matches_jax_codec(setup, setup_normals):
+    """End to end against the JAX codec's own normals encode (its bucket
+    backend, kernel in interpret mode): the same two groups, the d2
+    stream's bpp within 1% and its D2 / D1 PSNR within 0.05 dB (conv sums
+    differ in order between XLA and ATen), and the same d2 picks up to
+    one index on at most 2% of the blocks."""
+    s, sn = setup, setup_normals
+    jc = JaxCodec(s["jm"], s["params"], block_size=B, batch_blocks=BS,
+                  sweep_backend="bucket")
+    jdl, jmd = jc.compress_blocks_device_opt(
+        sn["blocks"], sn["binstr"], sn["pts6"], R, LEVEL, **D2_KW)
+    assert len(jdl) == len(sn["data_list"]) == 2
+    assert [m["idx"] for m in jmd] == [m["idx"] for m in sn["metadata"]]
+
+    def bpp(payload):
+        blob = save_compressed_file(sn["binstr"], payload, R, LEVEL)
+        return len(gzip.compress(blob)) * 8 / len(sn["pts6"])
+
+    for g, keys in ((0, ("d1_psnr",)), (1, ("d2_psnr", "d1_psnr"))):
+        b_port, b_jax = bpp(sn["data_list"][g]), bpp(jdl[g])
+        assert abs(b_port - b_jax) <= 0.01 * b_jax, (g, b_port, b_jax)
+        for k in keys:
+            p_port = sn["metadata"][g]["metrics"][k]
+            p_jax = jmd[g]["metrics"][k]
+            assert abs(p_port - p_jax) <= 0.05, (g, k, p_port, p_jax)
+    assert [t for _, t in sn["data_list"][0]] == [int(t) for _, t in jdl[0]]
+    got = np.array([t for _, t in sn["data_list"][1]])
+    want = np.array([int(t) for _, t in jdl[1]])
+    assert np.abs(got - want).max() <= 1
+    assert (got != want).sum() <= max(1, len(got) // 50)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_sweep_backends_give_identical_d1_streams(setup, backend):
+    s = setup
+    codec = BlockCodec(build_model(CFG), s["params"], block_size=B,
+                       batch_blocks=BS, device="cpu", sweep_backend=backend)
+    dl, md = codec.compress_blocks_device_opt(
+        s["blocks"], s["binstr"], s["pts"], R, LEVEL)
+    assert len(s["blocks"]) % BS  # the last chunk is a padded one
+    assert dl[0] == s["data_list"][0]
+    assert md[0]["metrics"] == s["metadata"][0]["metrics"]
+    with pytest.raises(NotImplementedError, match="bucket"):
+        codec._sweep(None, None, None, ("d2_mse",), (np.inf,))
+
+
+def test_unknown_sweep_backend_raises(setup):
+    with pytest.raises(ValueError, match="sweep_backend"):
+        BlockCodec(build_model(CFG), setup["params"], block_size=B,
+                   device="cpu", sweep_backend="auto")
+
+
+def test_cli_roundtrip_with_normals(tmp_path, setup, setup_normals):
+    """``--input_normals`` with a d1 and a d2 opt metric: two streams per
+    input, sidecars with d2 keys, both decode to the encoder's clouds."""
+    import json
+
+    from flax import serialization
+
+    from pcc_geo_cnn_v2_tpu_torch.cli import compress, decompress
+    from pcc_geo_cnn_v2_tpu_torch.utils import pc_io
+
+    s, sn = setup, setup_normals
+    asset = tmp_path / "w.msgpack.gz"
+    asset.write_bytes(gzip.compress(serialization.msgpack_serialize(
+        s["params"])))
+    pc_io.write_ply(tmp_path / "in.ply", sn["pts6"][:, :3])
+    pc_io.write_ply(tmp_path / "in_n.ply", sn["pts6"],
+                    names=("x", "y", "z", "nx", "ny", "nz"))
+    common = ["--checkpoint_dir", str(asset), "--model_config", "c3p",
+              "--num_filters", "8", "--device", "cpu", "--batch_blocks",
+              str(BS)]
+    outs = [str(tmp_path / f"c_{g}.bin") for g in ("d1", "d2")]
+    encs = [str(tmp_path / f"enc_{g}.ply") for g in ("d1", "d2")]
+    decs = [str(tmp_path / f"dec_{g}.ply") for g in ("d1", "d2")]
+    compress.main(["--input_files", str(tmp_path / "in.ply"),
+                   "--input_normals", str(tmp_path / "in_n.ply"),
+                   "--opt_metrics", "d1_mse", "d2_mse",
+                   "--output_files", *outs, "--dec_files", *encs,
+                   "--resolution", str(R), "--octree_level", str(LEVEL)]
+                  + common)
+    decompress.main(["--input_files", *outs, "--output_files", *decs]
+                    + common)
+    for enc, dec in zip(encs, decs):
+        e, d = pc_io.load_points([enc])[0], pc_io.load_points([dec])[0]
+        assert len(d) > 0
+        np.testing.assert_array_equal(d, e)
+    side = json.loads((tmp_path / "c_d2.bin.enc.metric.json").read_text())
+    assert "d2_psnr" in side and "d1_psnr" in side
+    side1 = json.loads((tmp_path / "c_d1.bin.enc.metric.json").read_text())
+    assert "d1_psnr" in side1 and "d2_psnr" not in side1

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's flagship encode and decode.
+"""Where the time goes in the PyTorch port's encode and decode paths.
 
     python3 tools/torch_profile_main_path.py [--seed 300] [--top 20]
 
-Runs the path ``chip_smoke.py`` drives (10-bit ``figure_cloud``, octree
-level 4, c3p at full width with ``bench_c3p.msgpack.gz``, batch 32) once
-to warm up, then once under ``torch.profiler`` on one GPU, and prints:
+Runs the three paths ``chip_smoke.py`` drives (10-bit ``figure_cloud``
+with normals, octree level 4, c3p at full width with
+``bench_c3p.msgpack.gz``, batch 32) — the d1 path, path A (d1_mse + d2_mse
+with normals, kernel K3) and path B (``sweep_backend="pallas"``, kernel
+K5) — each once to warm up, then once under ``torch.profiler`` on one GPU,
+and prints for each:
 
 - the codec's host phase times (``logging`` INFO lines of
   ``pcc_geo_cnn_v2_tpu_torch.codec``),
 - the wall time of encode and decode and the device-busy share (summed
   CUDA kernel time over wall time; kernels run on one stream),
 - the top device kernels by total CUDA time, grouped into families
-  (cuDNN convolution, sort, the port's K1/K2 kernels, other).
+  (cuDNN convolution, sort, the port's K1/K2/K3/K5 kernels, other).
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -23,15 +26,20 @@ import argparse
 import gzip
 import io
 import logging
+import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 FAMILIES = (("K1 bucket_colsums", ("bucket_colsums",)),
             ("K2 halo_edt", ("halo_zpass", "halo_plane")),
+            ("K3 bucket_colsums_d2", ("bucket_d2",)),
+            ("K5 edt_sweep", ("sweep_zpass", "sweep_plane")),
             ("convolution", ("conv", "cudnn", "sm90_xmma", "implicit",
                              "gemm", "wgrad", "dgrad", "fprop")),
             ("sort", ("sort", "radix")),
@@ -55,7 +63,6 @@ def device_us(evt):
 
 def main():
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=300)
@@ -67,49 +74,69 @@ def main():
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
 
     from pcc_geo_cnn_v2_tpu_torch.codec import BlockCodec
-    from pcc_geo_cnn_v2_tpu_torch.coding.syntax import (
-        load_compressed_file,
-        save_compressed_file,
-    )
     from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
     from pcc_geo_cnn_v2_tpu_torch.utils.octree import partition_octree
     from pcc_geo_cnn_v2_tpu_torch.utils.scansim import figure_cloud
     from pcc_geo_cnn_v2_tpu_torch.weights import load_asset_tree
 
-    points = figure_cloud(args.seed, 1024, with_normals=False)
-    blocks, binstr = partition_octree(points, [0, 0, 0], [1024] * 3, 4)
-    codec = BlockCodec(build_model("c3p"), load_asset_tree(
-        REPO / "pcc_geo_cnn_v2_tpu/assets/bench_c3p.msgpack.gz"),
-        block_size=64, batch_blocks=32)
+    points, normals = figure_cloud(args.seed, 1024, with_normals=True)
+    points6 = np.hstack([points, normals])
+    blocks, binstr = partition_octree(points6, [0, 0, 0], [1024] * 3, 4)
+    params = load_asset_tree(
+        REPO / "pcc_geo_cnn_v2_tpu/assets/bench_c3p.msgpack.gz")
 
-    def run():
-        t0 = time.time()
-        data_list, _ = codec.compress_blocks_device_opt(
-            blocks, binstr, points, 1024, 4)
-        blob = gzip.compress(save_compressed_file(binstr, data_list[0],
-                                                  1024, 4))
-        torch.cuda.synchronize()
-        t1 = time.time()
-        payload = load_compressed_file(io.BytesIO(gzip.decompress(blob)))[3]
-        codec.decompress_blocks(payload)
-        torch.cuda.synchronize()
-        return t1 - t0, time.time() - t1
-
-    import subprocess
+    def make(backend):
+        return BlockCodec(build_model("c3p"), params, block_size=64,
+                          batch_blocks=32, sweep_backend=backend)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"card: {card}; {len(blocks)} blocks")
-    print("warm-up run:")
+    paths = (("d1 path", make("bucket"), {}),
+             ("path A (d1_mse + d2_mse, normals)", make("bucket"),
+              dict(opt_metrics=("d1_mse", "d2_mse"), with_normals=True)),
+             ("path B (sweep_backend='pallas')", make("pallas"), {}))
+    for name, codec, kw in paths:
+        rc = profile_path(name, codec, blocks, binstr, points6, kw, args.top)
+        if rc:
+            return rc
+    return 0
+
+
+def profile_path(name, codec, blocks, binstr, points, kw, top):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pcc_geo_cnn_v2_tpu_torch.coding.syntax import (
+        load_compressed_file,
+        save_compressed_file,
+    )
+
+    def run():
+        t0 = time.time()
+        data_list, _ = codec.compress_blocks_device_opt(
+            blocks, binstr, points, 1024, 4, **kw)
+        blobs = [gzip.compress(save_compressed_file(binstr, payload, 1024,
+                                                    4))
+                 for payload in data_list]
+        torch.cuda.synchronize()
+        t1 = time.time()
+        for blob in blobs:
+            payload = load_compressed_file(
+                io.BytesIO(gzip.decompress(blob)))[3]
+            codec.decompress_blocks(payload)
+        torch.cuda.synchronize()
+        return t1 - t0, time.time() - t1
+
+    print(f"=== {name}: warm-up run:")
     run()
-    print("profiled run:")
+    print(f"=== {name}: profiled run:")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t_enc, t_dec = run()
     wall = t_enc + t_dec
-    from torch.autograd import DeviceType
-
     # device-side events only (CPU ops also carry their kernels' time)
     kern = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA
@@ -119,7 +146,7 @@ def main():
         return 1
     total_us = sum(device_us(e) for e in kern)
     print(f"wall: encode {t_enc:.3f} s ({len(blocks) / t_enc:.2f} blocks/s),"
-          f" decode {t_dec:.3f} s ({len(blocks) / t_dec:.2f} blocks/s)")
+          f" decode of every stream {t_dec:.3f} s")
     print(f"device busy: {total_us / 1e6:.3f} s of {wall:.3f} s wall "
           f"({100 * total_us / 1e6 / wall:.1f}%); idle "
           f"{100 - 100 * total_us / 1e6 / wall:.1f}%")
@@ -129,8 +156,8 @@ def main():
     for fam, us in sorted(fams.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:20s} {us / 1e3:10.3f} ms  "
               f"{100 * us / max(total_us, 1):5.1f}% of device time")
-    print(f"top {args.top} device kernels:")
-    for e in sorted(kern, key=lambda e: -device_us(e))[:args.top]:
+    print(f"top {top} device kernels:")
+    for e in sorted(kern, key=lambda e: -device_us(e))[:top]:
         print(f"  {device_us(e) / 1e3:10.3f} ms  {e.count:6d}x  "
               f"{e.key[:110]}")
     return 0
