@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Everything runs on one 10-bit ``figure_cloud`` with normals, partitioned
-at octree level 4, model c3p at full width (64 filters, f32) with the
-committed ``bench_c3p.msgpack.gz`` weights, ``batch_blocks=32``. Phases
-(each passes or ends the run with a non-zero exit):
+at octree level 4, model c3p at full width (64 filters; f32, and bf16 on
+path C) with the committed ``bench_c3p.msgpack.gz`` weights,
+``batch_blocks=32``. Phases (each passes or ends the run with a non-zero
+exit):
 
 1. Print the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions; build every kernel of ``pcc_geo_cnn_v2_tpu_torch/csrc`` (one
@@ -47,13 +48,32 @@ committed ``bench_c3p.msgpack.gz`` weights, ``batch_blocks=32``. Phases
    ``D2_PSNR_TOL_DB``); K3 and K2 launched, K1 not.
 8. Path B, ``sweep_backend="pallas"``: d1 encode → decode, bit-exact,
    stream bytes equal phase 6's; K5 and K2 launched, K1 and K3 not.
+9. K4a / K4b (fused residual tails) against their plain versions, in f32
+   and in bf16, at the six stage shapes of c3p at N = 32 on the real
+   activations of the first chunk (K4a: 32³×16, 16³×32, 8³×64, 16³×64,
+   32³×32; K4b: 64³×16 with ``slab=8``): f32 within 1e-4 of the tensor's
+   largest value, bf16 within 2 bf16 steps (``bf16_steps``), two launches
+   bit-identical, N = 1 equal to row 0 of N = 32, and K4b equal to K4a bit
+   for bit at 32³×16 (slab seams). Each is timed beside the cuDNN chain
+   conv → relu → conv → relu → add on the same tensors (``library_ms``).
+   The stage shapes of c3 that c3p lacks, and a volume no tile divides, are
+   checked on random inputs.
+10. Path C, ``conv_backend="pallas"``, f32: d1 encode → container →
+   decode on the whole cloud, bit-exact; encoder D1 PSNR equals the host
+   KD-tree's; y symbols ≥ 99.9% equal to the cuDNN backend's, bpp within
+   1% and PSNR within 0.05 dB of phase 6's; K4a and K4b launched 5 + 1
+   times per encode chunk and 2 + 1 per decode chunk, K1 and K2 as on the
+   d1 path.
+11. Path C in bf16 (``dtype=torch.bfloat16``): bit-exact decode, bpp
+   within 5% and PSNR within 0.5 dB of path C in f32; the cuDNN backend in
+   bf16 is run beside it for comparison.
 
-The launch counts are set to 0 just before each of the three paths and
-read just after. Prints a ``kernels`` JSON line (per kernel: launches on
-its path, max error against the plain version, its median time, the plain
-time and the least time the card could take for the same work), the card
-line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device it
-exits non-zero and prints no result.
+The launch counts are set to 0 just before each path and read just after.
+Prints a ``kernels`` JSON line (per kernel: launches on its path, max
+error against the plain version, its median time, the plain time, the
+least time the card could take for the same work and, for K4, the cuDNN
+chain's time), the card line, and last ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -81,6 +101,7 @@ HALO, HALO_BATCH = 12, 64
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 67e12 / 4
 PEAK_F32_OPS_S = 67e12
+PEAK_BF16_OPS_S = 989e12  # dense bf16 on the tensor cores
 # int32 operations per (point, candidate) pair that K1's function needs:
 # 3 subtractions and 3 multiply(-add)s for d², the running min, the
 # column-sum add and the column min. K3 needs the same per pair, plus one
@@ -376,6 +397,164 @@ def check_k5(codec, pts, x_hat):
                 bound_ms=bound_ms, bound_by=by)
 
 
+def bf16_steps(got, want):
+    """Elementwise distance in bf16 steps: the spacing of bf16 numbers at
+    the larger of the two values, or at 1/16 of the tensor's largest value
+    for smaller elements (sums that cancel: their error is set by the size
+    of the terms)."""
+    import torch
+
+    got, want = got.double(), want.double()
+    mag = torch.maximum(torch.maximum(got.abs(), want.abs()),
+                        want.abs().max() / 16)
+    return (got - want).abs() / 2.0 ** (torch.floor(torch.log2(mag)) - 7)
+
+
+def record_tail_inputs(codec, pts, n_valid):
+    """One canonical chunk through ``codec`` (fused-conv backend): the
+    arguments of every residual tail on the way, in order (three analysis
+    stages, three synthesis stages)."""
+    from pcc_geo_cnn_v2_tpu_torch.ops import fused_conv as fc
+
+    calls, tail = [], fc._tail
+    fc._tail = lambda *a: (calls.append(a), tail(*a))[1]
+    try:
+        res = codec.encode_chunk(pts, n_valid)
+    finally:
+        fc._tail = tail
+    return calls, res
+
+
+def check_k4(args, against=None):
+    """Phase 9, one stage: K4a or K4b (by the codec's dispatch rule) vs
+    its plain version on the tail's real inputs ``args`` (those of
+    ``fused_conv._tail``); ``against`` names the other kernel's wrapper to
+    be equalled bit for bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from pcc_geo_cnn_v2_tpu_torch.codec import deterministic_convs
+    from pcc_geo_cnn_v2_tpu_torch.ops import fused_conv as fc
+
+    x, w1, b1, w2, b2, S, C, dtype = args
+    x = x.contiguous()
+    n = x.shape[0]
+    slab = S ** 3 * C // fc.LANES > fc.MAX_FUSED_ROWS
+    name = "fused_tail_slab" if slab else "fused_tail"
+    kw = dict(spatial=S, channels=C, dtype=dtype)
+    fn, plain = ((fc.fused_residual_tail_slab,
+                  fc.fused_residual_tail_slab_plain) if slab else
+                 (fc.fused_residual_tail, fc.fused_residual_tail_plain))
+    got = fn(x, w1, b1, w2, b2, **kw)
+    again = fn(x, w1, b1, w2, b2, **kw)
+    one = fn(x[:1], w1, b1, w2, b2, **kw)
+    ref = plain(x, w1, b1, w2, b2, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, again), f"{name}: two launches differ"
+    assert torch.equal(one, got[:1]), f"{name}: N = 1 differs from row 0"
+    if against is not None:
+        assert torch.equal(against(x, w1, b1, w2, b2, **kw), got), \
+            f"{name} differs from the other kernel (slab seams)"
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    equal = float((got == ref).float().mean())
+    if dtype == torch.float32:
+        assert err <= 1e-4 * scale, \
+            f"{name} {S}^3x{C} f32: max err {err} of {scale}"
+        steps = None
+    else:
+        steps = float(bf16_steps(got, ref).max())
+        assert steps <= 2.0 and equal >= 0.99, \
+            f"{name} {S}^3x{C} bf16: {steps} steps, {equal} equal"
+    ms = time_ms(lambda: fn(x, w1, b1, w2, b2, **kw), reps=5)
+    plain_ms = time_ms(lambda: plain(x, w1, b1, w2, b2, **kw), reps=2)
+
+    # the cuDNN chain on the same tensors, in the layout given
+    # (channels-last) and in the modules' own (NCDHW)
+    deterministic_convs()
+    wk = [w.reshape(3, 3, 3, C, C).permute(4, 3, 0, 1, 2).contiguous()
+          for w in (w1, w2)]
+    bk = [b.to(dtype) for b in (b1, b2)]
+
+    def chain(v):
+        t = F.relu(F.conv3d(v, wk[0], bk[0], padding=1))
+        return v + F.relu(F.conv3d(t, wk[1], bk[1], padding=1))
+
+    x_last = x.permute(0, 4, 1, 2, 3)
+    x_first = x_last.contiguous()
+    lib = chain(x_last).permute(0, 2, 3, 4, 1)
+    torch.cuda.synchronize()
+    lib_err = float((lib.float() - ref.float()).abs().max())
+    lib_last = time_ms(lambda: chain(x_last), reps=3)
+    lib_first = time_ms(lambda: chain(x_first), reps=3)
+
+    flop = 2 * 2 * 27 * C * C * S ** 3 * n
+    nbytes = (2 * x.numel() + w1.numel() + w2.numel()) * x.element_size()
+    t_ops = flop / (PEAK_F32_OPS_S if dtype == torch.float32
+                    else PEAK_BF16_OPS_S)
+    t_bytes = nbytes / PEAK_BYTES_S
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    row = dict(shape=f"{n}x{S}^3x{C}", dtype=tag, max_abs_err=err,
+               ref_max=scale, equal_share=equal, bf16_steps=steps, ms=ms,
+               plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=min(lib_last, lib_first),
+               library_channels_last_ms=lib_last,
+               library_ncdhw_ms=lib_first, gflop=flop / 1e9)
+    log(f"{'K4b' if slab else 'K4a'} ok at {row['shape']} {tag}: max err "
+        f"{err:.3g} of {scale:.4g}"
+        + (f" ({steps:.2f} bf16 steps)" if steps is not None else "")
+        + f", {100 * equal:.3f}% equal, launches bit-identical, N = 1 "
+        f"equal; {ms:.3f} ms = {flop / ms / 1e9:.2f} TFLOP/s (plain "
+        f"{plain_ms:.3f} ms, bound {row['bound_ms']:.3f} ms by "
+        f"{row['bound_by']}, cuDNN chain {lib_last:.3f} ms channels-last / "
+        f"{lib_first:.3f} ms NCDHW, its max err {lib_err:.3g})")
+    return name, row
+
+
+def check_k4_other_shapes():
+    """Phase 9, the stage shapes c3p does not reach: c3's 8³×32 tail (K4a),
+    the 32³×64 and 64³×32 volumes the dispatch rule sends to K4b, and a
+    12³ volume that no tile divides (ragged H and W tiles; K4b with
+    ``slab=4``), on seeded random inputs at N = 2, f32 and bf16, against
+    the plain versions."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.ops import fused_conv as fc
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    done = []
+    for S, C, slab in ((8, 32, None), (12, 16, None), (12, 16, 4),
+                       (32, 64, 8), (64, 32, 8)):
+        x = rand(2, S, S, S, C, scale=0.5)
+        w1, w2 = (rand(27, C, C, scale=0.5 / (27 * C) ** 0.5)
+                  for _ in range(2))
+        b1, b2 = rand(C, scale=0.3), rand(C, scale=0.3)
+        for dtype in (torch.float32, torch.bfloat16):
+            kw = dict(spatial=S, channels=C, dtype=dtype)
+            if slab is None:
+                got = fc.fused_residual_tail(x, w1, b1, w2, b2, **kw)
+            else:
+                got = fc.fused_residual_tail_slab(x, w1, b1, w2, b2,
+                                                  slab=slab, **kw)
+            ref = fc.fused_residual_tail_plain(x, w1, b1, w2, b2, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            if dtype == torch.float32:
+                assert err <= 1e-4 * scale, (S, C, slab, err, scale)
+            else:
+                assert float(bf16_steps(got, ref).max()) <= 2.0, (S, C, slab)
+        done.append(f"{S}^3x{C}" + (f" slab {slab}" if slab else ""))
+    log("K4 ok at the other stage shapes (N = 2, f32 and bf16, against the "
+        "whole-volume plain version): " + ", ".join(done))
+
+
 def host_d1_psnr(points, decoded, r):
     """Reference D1 PSNR with host KD-trees (both directions)."""
     from scipy.spatial import cKDTree
@@ -504,6 +683,12 @@ def run(device):
     codec = BlockCodec(build_model("c3p"), params, block_size=BLOCK,
                        batch_blocks=BATCH, device=device)
 
+    fused = dict(block_size=BLOCK, batch_blocks=BATCH, device=device)
+    codec_c = BlockCodec(build_model("c3p", conv_backend="pallas"), params,
+                         **fused)
+    codec_cb = BlockCodec(build_model("c3p", dtype=torch.bfloat16,
+                                      conv_backend="pallas"), params, **fused)
+
     # phases 2-5 inputs: the canonical chunks of the paths below
     budget = max(int(2 ** np.ceil(np.log2(max(len(b) for b in blocks)))),
                  64)
@@ -513,6 +698,7 @@ def run(device):
         blocks, cols=(3, 4, 5), dtype=np.float32)[0], device=device)
     occ, mask, over_pts, over_nrm, over_xh = [], [], [], [], []
     share = {"chunks": np.zeros(2), "reruns": np.zeros(2), "n_reruns": 0}
+    sym_equal = {"y_sym": [0, 0], "z_sym": [0, 0]}
     for lo in range(0, len(blocks), BATCH):
         hi = min(lo + BATCH, len(blocks))
         pts = codec.chunk_points(flat_dev, offsets, lo, hi, budget)
@@ -521,6 +707,15 @@ def run(device):
         if lo < HALO_BATCH:
             occ.append(res["occ"])
             mask.append(res["masks"][0])
+        # the fused-conv backend's symbols on the same chunk
+        if lo == 0:
+            tails, res_c = record_tail_inputs(codec_c, pts, hi - lo)
+            tails_bf16 = record_tail_inputs(codec_cb, pts, hi - lo)[0]
+        else:
+            res_c = codec_c.encode_chunk(pts, hi - lo)
+        for key, cnt in sym_equal.items():
+            cnt[0] += int((res[key][:hi - lo] == res_c[key][:hi - lo]).sum())
+            cnt[1] += res[key][:hi - lo].numel()
         if lo == 0:
             k1 = check_k1(codec, pts, res["x_hat"], codec.bucket_k)
             k3 = check_k3(codec, pts, nrm, res["x_hat"], codec.bucket_k)
@@ -573,7 +768,8 @@ def run(device):
 
     def drive(enc_codec, **kw):
         """One counted path: encode → containers → decode of each; every
-        decode must equal the encoder's embedded reconstruction."""
+        decode must equal the encoder's embedded reconstruction. The counts
+        after the encode half stay in ``drive.encode_counts``."""
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.time()
@@ -582,6 +778,7 @@ def run(device):
         blobs = [container(payload) for payload in data_list]
         torch.cuda.synchronize()
         t_enc = time.time() - t0
+        drive.encode_counts = dict(kernels.launches)
         t0 = time.time()
         decoded = [decode(enc_codec, blob) for blob in blobs]
         torch.cuda.synchronize()
@@ -666,7 +863,88 @@ def run(device):
     expect_launches("path B", counts_b, ("edt_sweep", "halo_edt"),
                     ("bucket_colsums", "bucket_colsums_d2"))
 
-    by_path = {"d1": counts_d1, "A": counts_a, "B": counts_b}
+    # phase 9: K4a / K4b against their plain versions, stage by stage
+    from pcc_geo_cnn_v2_tpu_torch.ops import fused_conv as fc
+
+    k4 = {"fused_tail": [], "fused_tail_slab": []}
+    for stage_args in tails + tails_bf16:
+        name, row = check_k4(stage_args)
+        k4[name].append(row)
+    assert [len(v) for v in k4.values()] == [10, 2], k4.keys()
+    # slab seams: K4b at a size K4a takes too (32^3 x 16, four slabs)
+    seam = next(a for a in tails if (a[5], a[6]) == (32, 16))
+    check_k4(seam, against=fc.fused_residual_tail_slab)
+    log("K4b equals K4a bit for bit at 32x32^3x16 (slab = 8: three seams)")
+    check_k4_other_shapes()
+    del tails, tails_bf16, seam
+
+    # phase 10: path C, the fused-conv backend, f32
+    n_chunks = -(-len(blocks) // BATCH)
+    # per chunk: (encode, decode) launches — three analysis and two
+    # synthesis tails on K4a, the 64^3 x 16 synthesis tail on K4b
+    k4_launches = {"fused_tail": (5, 2), "fused_tail_slab": (1, 1)}
+
+    def expect_k4_launches(path, counts):
+        for name, (enc, dec) in k4_launches.items():
+            got = (drive.encode_counts[name],
+                   counts[name] - drive.encode_counts[name])
+            assert got == (enc * n_chunks, dec * n_chunks), (path, name, got)
+
+    def drive_c(enc_codec, label):
+        blobs, metadata, decoded, counts, t_enc, t_dec = drive(enc_codec)
+        bpp_c = len(blobs[0]) * 8 / len(points)
+        psnr_c = metadata[0]["metrics"]["d1_psnr"]
+        host_c = host_d1_psnr(points, decoded[0], RESOLUTION - 1)
+        assert np.isfinite(psnr_c) and 0 < bpp_c < 8, (psnr_c, bpp_c)
+        assert abs(psnr_c - host_c) < 1e-6, (psnr_c, host_c)
+        log(f"{label}: {len(blocks)} blocks, {len(decoded[0])} decoded "
+            f"points, bit-exact; {bpp_c:.4f} bpp, D1 PSNR {psnr_c:.4f} dB "
+            f"(host KD-tree {host_c:.4f}); encode "
+            f"{len(blocks) / t_enc:.2f} blocks/s ({t_enc:.2f} s), decode "
+            f"{len(blocks) / t_dec:.2f} blocks/s ({t_dec:.2f} s); launches "
+            f"{counts}")
+        return bpp_c, psnr_c, counts
+
+    shares = {k: a / b for k, (a, b) in sym_equal.items()}
+    bpp_c, psnr_c, counts_c = drive_c(
+        codec_c, "path C (conv_backend='pallas', f32)")
+    log(f"path C symbols equal to the cuDNN backend's: y "
+        f"{100 * shares['y_sym']:.4f}%, z {100 * shares['z_sym']:.4f}%; "
+        f"bpp {bpp_c / bpp - 1:+.4%}, PSNR {psnr_c - psnr:+.4f} dB against "
+        f"the d1 path")
+    assert min(shares.values()) >= 0.999, shares
+    assert abs(bpp_c - bpp) <= 0.01 * bpp and abs(psnr_c - psnr) <= 0.05
+    expect_launches("path C", counts_c,
+                    ("fused_tail", "fused_tail_slab", "bucket_colsums",
+                     "halo_edt"), ("bucket_colsums_d2", "edt_sweep"))
+    expect_k4_launches("path C", counts_c)
+    assert all(counts_c[k] == counts_d1[k]
+               for k in ("bucket_colsums", "halo_edt")), (counts_c, counts_d1)
+
+    # phase 11: path C in bf16, and the cuDNN backend in bf16 beside it
+    bpp_cb, psnr_cb, counts_cb = drive_c(
+        codec_cb, "path C (conv_backend='pallas', bf16)")
+    expect_k4_launches("path C in bf16", counts_cb)
+    assert abs(bpp_cb - bpp_c) <= 0.05 * bpp_c and \
+        abs(psnr_cb - psnr_c) <= 0.5, (bpp_cb, psnr_cb)
+    bpp_xb, psnr_xb, counts_xb = drive_c(
+        BlockCodec(build_model("c3p", dtype=torch.bfloat16), params, **fused),
+        "cuDNN backend in bf16 (conv_backend='xla')")
+    assert counts_xb["fused_tail"] == counts_xb["fused_tail_slab"] == 0
+    log(f"bf16: path C {bpp_cb:.4f} bpp / {psnr_cb:.4f} dB; cuDNN backend "
+        f"{bpp_xb:.4f} bpp / {psnr_xb:.4f} dB; f32 path C {bpp_c:.4f} bpp / "
+        f"{psnr_c:.4f} dB")
+
+    by_path = {"d1": counts_d1, "A": counts_a, "B": counts_b, "C": counts_c,
+               "C_bf16": counts_cb}
+    for name, shapes in k4.items():
+        # headline numbers: f32 at the stage with the most work
+        top = max((r for r in shapes if r["dtype"] == "f32"),
+                  key=lambda r: r["gflop"])
+        k4[name] = {**{k: top[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "shapes": shapes}
     rows = []
     for name, meta, path, src, tpu in (
             ("bucket_colsums", k1, "d1", "csrc/bucket_colsums.cu",
@@ -676,11 +954,16 @@ def run(device):
             ("bucket_colsums_d2", k3, "A", "csrc/bucket_colsums_d2.cu",
              "pcc_geo_cnn_v2_tpu/ops/bucket_sweep.py:121"),
             ("edt_sweep", k5, "B", "csrc/edt_sweep.cu",
-             "pcc_geo_cnn_v2_tpu/ops/pallas_sweep.py:156")):
+             "pcc_geo_cnn_v2_tpu/ops/pallas_sweep.py:156"),
+            ("fused_tail", k4["fused_tail"], "C", "csrc/fused_tail.cu",
+             "pcc_geo_cnn_v2_tpu/ops/pallas_conv.py:171"),
+            ("fused_tail_slab", k4["fused_tail_slab"], "C",
+             "csrc/fused_tail_slab.cu",
+             "pcc_geo_cnn_v2_tpu/ops/pallas_conv.py:345")):
         rows.append({"name": name, "route": "cuda",
                      "source": f"pcc_geo_cnn_v2_tpu_torch/{src}",
                      "replaces": tpu, "launches": by_path[path][name],
-                     "path": path, **meta, "library_ms": None,
+                     "path": path, "library_ms": None, **meta,
                      "launches_by_path": {k: v[name]
                                           for k, v in by_path.items()}})
     print(json.dumps({"kernels": rows}))

@@ -36,6 +36,12 @@ values. On the GPU this needs deterministic convolutions: every conv pass
 runs with ``torch.backends.cudnn.deterministic = True``,
 ``cudnn.benchmark = False`` and TF32 off for both cuDNN and matmuls
 (:func:`deterministic_convs`), so one shape always takes one algorithm.
+The model's conv backend and compute type (``build_model(config, dtype,
+conv_backend)``) are part of that contract, as in the JAX package: a
+stream must be decoded with the backend and the dtype it was encoded with.
+With ``conv_backend="pallas"`` the residual tails run on the hand-written
+kernels K4a / K4b, which sum every voxel in one fixed order whatever the
+batch; the strided convs around them stay cuDNN under the same flags.
 
 Blocks whose candidate count overflows the sweep's budget
 (``bucket_k``) are re-swept through the same kernel at ``K = B³``, where
@@ -155,6 +161,8 @@ class BlockCodec:
         eb["quantiles"] = refine_factorized_quantiles(eb)["quantiles"]
         tree["entropy_bottleneck"] = eb
         self.model.load_state_dict(params_from_jax(tree))
+        # the fused-conv backend's packed tail weights follow the load
+        self.model.pack_fused_weights()
         self.eb_table = build_factorized_cdf(eb)
 
     # -- shape helpers ----------------------------------------------------

@@ -28,12 +28,19 @@ MODEL_CONFIGS: dict[str, dict] = {
 }
 
 
-def build_model(config) -> CompressionModelV2:
-    """Instantiate a model from a config name or an explicit config dict."""
+def build_model(config, dtype=None, conv_backend="xla") -> CompressionModelV2:
+    """Instantiate a model from a config name or an explicit config dict.
+
+    :param dtype: compute type of the transforms (None = f32, or
+        ``torch.bfloat16``); parameters stay f32.
+    :param conv_backend: ``"xla"`` (modules, cuDNN) or ``"pallas"`` (fused
+        residual tails on kernels K4a / K4b) for the inference entry points;
+        see ``models/codec_models.py``.
+    """
     if isinstance(config, str):
         config = MODEL_CONFIGS[config]
     cfg = dict(config)
     kind = cfg.pop("model")
     if kind != "v2":
         raise ValueError(f"model kind {kind!r} is not ported yet")
-    return CompressionModelV2(**cfg)
+    return CompressionModelV2(dtype=dtype, conv_backend=conv_backend, **cfg)

@@ -7,6 +7,11 @@ its public methods. Submodule names are the flax auto-names
 (``AnalysisBlock_0``, ``Conv_1``, ``ConvTranspose_0``…) so weight import is
 one rule per leaf (``weights.params_from_jax``).
 
+Every layer takes a ``dtype`` as the flax modules do: the input and the
+parameters are cast to it, the convolution sums in f32 and rounds its
+result to ``dtype``, the bias is added in ``dtype``, and the result stays
+in ``dtype``; the parameters themselves stay f32. ``None`` is f32.
+
 Padding follows XLA's ``SAME`` rules exactly, written out:
 
 - ``Conv`` stride s: ``pad_total = max((ceil(n/s) - 1)·s + k - n, 0)``,
@@ -51,21 +56,47 @@ def transpose_pads(k, s):
     return pad_a, pad_len - pad_a
 
 
+def _cast(x, weight, bias, dtype):
+    """Operands of a layer computing in ``dtype`` (None: as they are)."""
+    if dtype is None or dtype == x.dtype == weight.dtype:
+        return x, weight, bias
+    return (x.to(dtype), weight.to(dtype),
+            None if bias is None else bias.to(dtype))
+
+
+def _conv3d(x, weight, stride=1):
+    """``F.conv3d`` without bias. A reduced-precision conv on the CPU is
+    computed on the operands widened to f32 and rounded once, which is
+    what the card's tensor cores do (f32 accumulation); ATen's CPU kernels
+    leave their accumulation type open."""
+    if x.device.type == "cpu" and x.dtype != torch.float32:
+        return F.conv3d(x.float(), weight.float(), None, stride).to(x.dtype)
+    return F.conv3d(x, weight, None, stride)
+
+
+def _add_bias(y, bias):
+    return y if bias is None else y + bias.view(1, -1, 1, 1, 1)
+
+
 class Conv(nn.Module):
     """flax ``nn.Conv(padding="SAME")`` on NCDHW; weight OIDHW."""
 
-    def __init__(self, cin, cout, kernel=3, stride=1, bias=True):
+    def __init__(self, cin, cout, kernel=3, stride=1, bias=True, dtype=None):
         super().__init__()
-        self.k, self.s = kernel, stride
+        self.k, self.s, self.dtype = kernel, stride, dtype
         self.weight = nn.Parameter(torch.zeros(cout, cin, kernel, kernel,
                                                kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
-    def forward(self, x):
+    def forward(self, x, dtype=None):
+        """:param dtype: compute type of this call (default: the layer's)."""
+        x, w, b = _cast(x, self.weight, self.bias, dtype or self.dtype)
         pads = []
         for n in reversed(x.shape[2:]):  # F.pad lists the last dim first
             pads.extend(same_pads(n, self.k, self.s))
-        return F.conv3d(F.pad(x, pads), self.weight, self.bias, self.s)
+        if x.dtype == torch.float32:
+            return F.conv3d(F.pad(x, pads), w, b, self.s)
+        return _add_bias(_conv3d(F.pad(x, pads), w, self.s), b)
 
 
 def _parity_taps(k, s, pad_a, r):
@@ -90,24 +121,35 @@ class ConvTranspose(nn.Module):
     single ``conv3d``.
     """
 
-    def __init__(self, cin, cout, kernel=3, stride=1, bias=True):
+    def __init__(self, cin, cout, kernel=3, stride=1, bias=True, dtype=None):
         super().__init__()
-        self.k, self.s = kernel, stride
+        self.k, self.s, self.dtype = kernel, stride, dtype
         self.weight = nn.Parameter(torch.zeros(cout, cin, kernel, kernel,
                                                kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
-    def forward(self, x):
+    def forward(self, x, dtype=None):
+        """:param dtype: compute type of this call (default: the layer's)."""
         k, s = self.k, self.s
+        x, weight, bias = _cast(x, self.weight, self.bias,
+                                dtype or self.dtype)
         pad_a, pad_b = transpose_pads(k, s)
         if s == 1:
-            return F.conv3d(F.pad(x, (pad_a, pad_b) * 3), self.weight,
-                            self.bias)
+            xp = F.pad(x, (pad_a, pad_b) * 3)
+            if x.dtype == torch.float32:
+                return F.conv3d(xp, weight, bias)
+            return _add_bias(_conv3d(xp, weight), bias)
         sizes = x.shape[2:]
         outs = [(n - 1) * s + pad_a + pad_b - k + 2 for n in sizes]
-        y = x.new_zeros((x.shape[0], self.weight.shape[0], *outs))
+        # the parity classes are written into the input's memory format
+        last = (x.is_contiguous(memory_format=torch.channels_last_3d)
+                and not x.is_contiguous())
+        y = torch.empty(
+            (x.shape[0], weight.shape[0], *outs), dtype=x.dtype,
+            device=x.device, memory_format=torch.channels_last_3d if last
+            else torch.contiguous_format).zero_()
         for rs in itertools.product(range(s), repeat=3):
-            w, pads = self.weight, []
+            w, pads = weight, []
             for ax, (r, n, L) in enumerate(zip(rs, sizes, outs)):
                 taps, o0 = _parity_taps(k, s, pad_a, r)
                 if not taps:
@@ -120,21 +162,19 @@ class ConvTranspose(nn.Module):
                 pads.append((-o0, o0 + n_r + len(taps) - 1 - n))
             else:
                 flat = [p for pair in reversed(pads) for p in pair]
-                y[:, :, rs[0]::s, rs[1]::s, rs[2]::s] = F.conv3d(
+                y[:, :, rs[0]::s, rs[1]::s, rs[2]::s] = _conv3d(
                     F.pad(x, flat), w)
-        if self.bias is not None:
-            y = y + self.bias.view(1, -1, 1, 1, 1)
-        return y
+        return _add_bias(y, bias)
 
 
 class AnalysisBlock(nn.Module):
     """Strided conv + two convs, ``h + f(h)`` skip (``add`` mode)."""
 
-    def __init__(self, cin, filters, kernel=3, strides=2):
+    def __init__(self, cin, filters, kernel=3, strides=2, dtype=None):
         super().__init__()
-        self.Conv_0 = Conv(cin, filters, kernel, strides)
-        self.Conv_1 = Conv(filters, filters, kernel)
-        self.Conv_2 = Conv(filters, filters, kernel)
+        self.Conv_0 = Conv(cin, filters, kernel, strides, dtype=dtype)
+        self.Conv_1 = Conv(filters, filters, kernel, dtype=dtype)
+        self.Conv_2 = Conv(filters, filters, kernel, dtype=dtype)
 
     def forward(self, x):
         h = F.relu(self.Conv_0(x))
@@ -145,11 +185,14 @@ class AnalysisBlock(nn.Module):
 class SynthesisBlock(nn.Module):
     """Strided transposed conv + two transposed convs, ``add`` skip."""
 
-    def __init__(self, cin, filters, kernel=3, strides=2):
+    def __init__(self, cin, filters, kernel=3, strides=2, dtype=None):
         super().__init__()
-        self.ConvTranspose_0 = ConvTranspose(cin, filters, kernel, strides)
-        self.ConvTranspose_1 = ConvTranspose(filters, filters, kernel)
-        self.ConvTranspose_2 = ConvTranspose(filters, filters, kernel)
+        self.ConvTranspose_0 = ConvTranspose(cin, filters, kernel, strides,
+                                             dtype=dtype)
+        self.ConvTranspose_1 = ConvTranspose(filters, filters, kernel,
+                                             dtype=dtype)
+        self.ConvTranspose_2 = ConvTranspose(filters, filters, kernel,
+                                             dtype=dtype)
 
     def forward(self, x):
         h = F.relu(self.ConvTranspose_0(x))
@@ -160,22 +203,24 @@ class SynthesisBlock(nn.Module):
 class BlockStack(nn.Module):
     """Shared body of the V2 analysis/synthesis families."""
 
-    def __init__(self, filters, widths, synthesis, cin, kernel=3):
+    def __init__(self, filters, widths, synthesis, cin, kernel=3,
+                 dtype=None):
         super().__init__()
         self.synthesis = synthesis
+        self.dtype = dtype
         block = SynthesisBlock if synthesis else AnalysisBlock
         name = "SynthesisBlock" if synthesis else "AnalysisBlock"
         c = cin
         for i, frac in enumerate(widths):
             f = int(filters * frac)
-            setattr(self, f"{name}_{i}", block(c, f, kernel))
+            setattr(self, f"{name}_{i}", block(c, f, kernel, dtype=dtype))
             c = f
         self.n_blocks = len(widths)
         self.block_name = name
         if synthesis:
-            self.ConvTranspose_0 = ConvTranspose(c, 1, kernel)
+            self.ConvTranspose_0 = ConvTranspose(c, 1, kernel, dtype=dtype)
         else:
-            self.Conv_0 = Conv(c, filters, kernel, bias=False)
+            self.Conv_0 = Conv(c, filters, kernel, bias=False, dtype=dtype)
 
     def forward(self, x):
         for i in range(self.n_blocks):
@@ -185,30 +230,34 @@ class BlockStack(nn.Module):
         return self.Conv_0(x)
 
 
-def AnalysisTransformV2(filters):
-    return BlockStack(filters, (0.5, 1, 1), synthesis=False, cin=1)
+def AnalysisTransformV2(filters, dtype=None):
+    return BlockStack(filters, (0.5, 1, 1), synthesis=False, cin=1,
+                      dtype=dtype)
 
 
-def SynthesisTransformV2(filters):
-    return BlockStack(filters, (1, 1, 0.5), synthesis=True, cin=filters)
+def SynthesisTransformV2(filters, dtype=None):
+    return BlockStack(filters, (1, 1, 0.5), synthesis=True, cin=filters,
+                      dtype=dtype)
 
 
-def AnalysisTransformProgressiveV2(filters):
-    return BlockStack(filters, (0.25, 0.5, 1), synthesis=False, cin=1)
+def AnalysisTransformProgressiveV2(filters, dtype=None):
+    return BlockStack(filters, (0.25, 0.5, 1), synthesis=False, cin=1,
+                      dtype=dtype)
 
 
-def SynthesisTransformProgressiveV2(filters):
-    return BlockStack(filters, (1, 0.5, 0.25), synthesis=True, cin=filters)
+def SynthesisTransformProgressiveV2(filters, dtype=None):
+    return BlockStack(filters, (1, 0.5, 0.25), synthesis=True, cin=filters,
+                      dtype=dtype)
 
 
 class HyperAnalysisTransform(nn.Module):
     """y → z: conv, stride-2 conv, linear conv."""
 
-    def __init__(self, filters):
+    def __init__(self, filters, dtype=None):
         super().__init__()
-        self.Conv_0 = Conv(filters, filters, 3)
-        self.Conv_1 = Conv(filters, filters, 3, 2)
-        self.Conv_2 = Conv(filters, filters, 3, bias=False)
+        self.Conv_0 = Conv(filters, filters, 3, dtype=dtype)
+        self.Conv_1 = Conv(filters, filters, 3, 2, dtype=dtype)
+        self.Conv_2 = Conv(filters, filters, 3, bias=False, dtype=dtype)
 
     def forward(self, x):
         x = F.relu(self.Conv_0(x))
@@ -219,11 +268,12 @@ class HyperAnalysisTransform(nn.Module):
 class HyperSynthesisTransform(nn.Module):
     """z → σ: deconv, stride-2 deconv, deconv, all ReLU."""
 
-    def __init__(self, filters):
+    def __init__(self, filters, dtype=None):
         super().__init__()
-        self.ConvTranspose_0 = ConvTranspose(filters, filters, 3)
-        self.ConvTranspose_1 = ConvTranspose(filters, filters, 3, 2)
-        self.ConvTranspose_2 = ConvTranspose(filters, filters, 3)
+        self.ConvTranspose_0 = ConvTranspose(filters, filters, 3, dtype=dtype)
+        self.ConvTranspose_1 = ConvTranspose(filters, filters, 3, 2,
+                                             dtype=dtype)
+        self.ConvTranspose_2 = ConvTranspose(filters, filters, 3, dtype=dtype)
 
     def forward(self, x):
         x = F.relu(self.ConvTranspose_0(x))

@@ -46,6 +46,13 @@ KERNELS = {
         "pcc_edt_sweep": [_P] * 10 + [_I, _I, _I, _P],
         "pcc_edt_sweep_group": [],
     }),
+    # both include csrc/fused_tail.cuh (the shared tile body)
+    "fused_tail": ("fused_tail.cu", {
+        "pcc_fused_tail": [_P] * 6 + [_I] * 5 + [_P],
+    }),
+    "fused_tail_slab": ("fused_tail_slab.cu", {
+        "pcc_fused_tail_slab": [_P] * 6 + [_I] * 6 + [_P],
+    }),
 }
 
 launches = {name: 0 for name in KERNELS}
@@ -69,14 +76,25 @@ def _nvcc_cmd():
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
+def _header_newer(name):
+    """True when a shared header (``csrc/*.cuh``) is newer than the built
+    library: the builder compares a library with its ``.cu`` file only."""
+    so = native.BUILD_DIR / f"lib{name}.so"
+    return so.exists() and any(h.stat().st_mtime > so.stat().st_mtime
+                               for h in CSRC.glob("*.cuh"))
+
+
 def build_all(force=False):
     """Compile every stale kernel library in parallel.
 
     :return: (seconds, {name: nvcc/ptxas log}).
     """
     t0 = time.time()
-    logs = native.build({n: (CSRC / src, _nvcc_cmd)
-                         for n, (src, _) in KERNELS.items()}, force=force)
+    jobs = {n: (CSRC / src, _nvcc_cmd) for n, (src, _) in KERNELS.items()}
+    logs = native.build({n: j for n, j in jobs.items()
+                         if force or _header_newer(n)}, force=True)
+    logs.update(native.build({n: j for n, j in jobs.items()
+                              if n not in logs}))
     return time.time() - t0, logs
 
 
@@ -90,8 +108,10 @@ def _bind(name):
 
 def load(name):
     """ctypes handle of a kernel library, building it on first use."""
-    return native.load_lib(name, CSRC / KERNELS[name][0], _nvcc_cmd,
-                           setup=_bind(name))
+    src = CSRC / KERNELS[name][0]
+    if _header_newer(name):
+        native.build({name: (src, _nvcc_cmd)}, force=True)
+    return native.load_lib(name, src, _nvcc_cmd, setup=_bind(name))
 
 
 def check_cuda_tensor(t, name, dtype, shape=None):

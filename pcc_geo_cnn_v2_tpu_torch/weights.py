@@ -14,6 +14,9 @@ The port reads them without ``msgpack`` or ``flax``:
   is an lhs-dilated correlation with the kernel NOT flipped, and the port
   computes it as such (``models/transforms.ConvTranspose``), so no flip
   and no I/O swap is needed — the ones ``F.conv_transpose3d`` would want.
+- :func:`tail_weights_from_jax` packs the residual-tail kernels of a flax
+  transform subtree for the fused-conv kernels (``ops/fused_conv.py``), the
+  same packing the port's modules get from their own parameters.
 """
 
 from __future__ import annotations
@@ -25,7 +28,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["msgpack_restore", "load_asset_tree", "params_from_jax"]
+from pcc_geo_cnn_v2_tpu_torch.ops.fused_conv import pack_tail_weights
+
+__all__ = ["msgpack_restore", "load_asset_tree", "params_from_jax",
+           "tail_weights_from_jax"]
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -153,3 +159,24 @@ def params_from_jax(tree) -> dict:
             np.array(a, copy=True, order="C"))
     return state
 
+
+
+def tail_weights_from_jax(stack_tree, dtype=torch.float32) -> list:
+    """flax subtree of a V2-family transform (``params["analysis_t"]`` or
+    ``params["synthesis_t"]``) → per block ``(w1, b1, w2, b2)`` as kernels
+    K4a / K4b take them: tap-major ``[27, cin, cout]`` weights in ``dtype``,
+    f32 biases. Equal to ``ops.fused_conv.packed_tails`` of the module that
+    ``params_from_jax`` loaded from the same tree.
+    """
+    out = []
+    blocks = sorted((k for k in stack_tree if "Block_" in k),
+                    key=lambda k: int(k.rsplit("_", 1)[1]))
+    for name in blocks:
+        convs = stack_tree[name]
+        layer = "ConvTranspose" if "ConvTranspose_1" in convs else "Conv"
+        out.append(tuple(
+            t for i in (1, 2) for t in (
+                pack_tail_weights(convs[f"{layer}_{i}"]["kernel"], dtype),
+                torch.from_numpy(np.array(convs[f"{layer}_{i}"]["bias"],
+                                          np.float32)))))
+    return out

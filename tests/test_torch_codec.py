@@ -16,7 +16,11 @@ into 16³ blocks:
   thresholds (|Δidx| ≤ 1 allowed only at a < 1e-5 relative near-tie of
   the f32 plane sums, counted), and the JAX codec's own normals encode
   gives the same groups, rate, D2 PSNR and picks;
-- the three sweep backends give identical d1 streams.
+- the three sweep backends give identical d1 streams;
+- the fused-conv backend (``conv_backend="pallas"``, c3p at full width on
+  16³ blocks, f32 and bf16): the round trip is bit-exact, and bpp / D1
+  PSNR agree with the JAX codec built the same way (Pallas tails in
+  interpret mode).
 """
 
 import gzip
@@ -358,3 +362,102 @@ def test_cli_roundtrip_with_normals(tmp_path, setup, setup_normals):
     assert "d2_psnr" in side and "d1_psnr" in side
     side1 = json.loads((tmp_path / "c_d1.bin.enc.metric.json").read_text())
     assert "d1_psnr" in side1 and "d2_psnr" not in side1
+
+
+def _fused_setup(dtype_t, dtype_j):
+    """c3p at full width (the JAX tail kernel needs S·C/128 whole), random
+    weights, a 64³ cloud in 16³ blocks, conv_backend="pallas" on both
+    sides."""
+    r, level, bs = 64, 2, 6  # 16 blocks: the last chunk is a padded one
+    pts = figure_cloud(4, r, with_normals=False)
+    blocks, binstr = partition_octree(pts, [0, 0, 0], [r] * 3, level)
+    jm = jax_build("c3p", dtype=dtype_j, conv_backend="pallas")
+    params = jax.tree_util.tree_map(np.array, jm.init(
+        jax.random.PRNGKey(0), np.zeros((1, B, B, B, 1), np.float32),
+        training=False))
+    params["params"]["synthesis_t"]["ConvTranspose_0"]["bias"] += 0.55
+
+    def codec():
+        return BlockCodec(build_model("c3p", dtype=dtype_t,
+                                      conv_backend="pallas"), params,
+                          block_size=B, batch_blocks=bs, device="cpu")
+
+    enc = codec()
+    data_list, metadata = enc.compress_blocks_device_opt(
+        blocks, binstr, pts, r, level)
+    blob = gzip.compress(save_compressed_file(binstr, data_list[0], r, level))
+    payload = load_compressed_file(io.BytesIO(gzip.decompress(blob)))[3]
+    dec = codec().decompress_blocks(payload)  # a fresh decoder
+    assert len(dec) == len(blocks) and len(blocks) % bs
+    for d, e in zip(dec, metadata[0]["x_hat_list"]):
+        np.testing.assert_array_equal(d, e)
+    assert sum(len(d) for d in dec) > 0
+
+    jc = JaxCodec(jm, params, block_size=B, batch_blocks=bs)
+    jdl, jmd = jc.compress_blocks_device_opt(blocks, binstr, pts, r, level)
+    b_port = len(blob) * 8 / len(pts)
+    b_jax = len(gzip.compress(save_compressed_file(
+        binstr, jdl[0], r, level))) * 8 / len(pts)
+    return (b_port, b_jax, metadata[0]["metrics"]["d1_psnr"],
+            jmd[0]["metrics"]["d1_psnr"], enc)
+
+
+def test_fused_conv_backend_roundtrip_and_jax_codec_f32():
+    b_port, b_jax, p_port, p_jax, enc = _fused_setup(None, None)
+    assert abs(b_port - b_jax) <= 0.01 * b_jax, (b_port, b_jax)
+    assert abs(p_port - p_jax) <= 0.05, (p_port, p_jax)
+    # the packed tail weights follow set_params
+    from pcc_geo_cnn_v2_tpu_torch.ops.fused_conv import packed_tails
+
+    stack = enc.model.synthesis_t
+    before = packed_tails(stack, torch.float32)
+    tree = jax.tree_util.tree_map(
+        lambda a: a * 0.5, {"params": {
+            k: v for k, v in _tree_of(enc).items()}})
+    enc.set_params(tree)
+    after = stack._packed_tails[torch.float32][1]
+    assert after is not before
+    assert torch.equal(after[0][0], before[0][0] * 0.5)
+    assert packed_tails(stack, torch.float32) is after  # packed by the load
+
+
+def _tree_of(codec):
+    """The codec's current parameters as a flax-layout numpy tree."""
+    tree = {}
+    for key, v in codec.model.state_dict().items():
+        *mods, leaf = key.split(".")
+        a = v.numpy()
+        if leaf == "weight":
+            leaf, a = "kernel", a.transpose(2, 3, 4, 1, 0)
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = a
+    return tree
+
+
+def test_fused_conv_backend_roundtrip_and_jax_codec_bf16():
+    """bf16 stacks on both sides: the decode is bit-exact, and against the
+    JAX codec the f32 bounds hold (both sides round at the same points;
+    found: bpp and D1 PSNR equal to four decimals)."""
+    b_port, b_jax, p_port, p_jax, _ = _fused_setup(torch.bfloat16,
+                                                   jnp.bfloat16)
+    print(f"bf16 fused backend: bpp {b_port:.4f} vs JAX {b_jax:.4f}, D1 "
+          f"PSNR {p_port:.4f} vs {p_jax:.4f} dB")
+    assert abs(b_port - b_jax) <= 0.01 * b_jax, (b_port, b_jax)
+    assert abs(p_port - p_jax) <= 0.05, (p_port, p_jax)
+
+
+def test_decoder_backend_must_match_the_encoder(setup):
+    """The same weights through the two conv backends give different
+    objects with the same interface; the codec keeps the model's backend
+    and dtype, and the xla-backend stream of the small model above is
+    untouched by the new arguments."""
+    m = build_model(CFG, conv_backend="pallas", dtype=torch.bfloat16)
+    assert (m.conv_backend, m.dtype) == ("pallas", torch.bfloat16)
+    assert build_model(CFG).conv_backend == "xla"
+    codec = BlockCodec(build_model(CFG), setup["params"], block_size=B,
+                       batch_blocks=BS, device="cpu")
+    dl, _ = codec.compress_blocks_device_opt(
+        setup["blocks"], setup["binstr"], setup["pts"], R, LEVEL)
+    assert dl[0] == setup["data_list"][0]

@@ -59,7 +59,8 @@ assert not {"jax", "flax", "pcc_geo_cnn_v2_tpu"} & set(sys.modules)
 
 
 @pytest.mark.parametrize("name", ["bucket_colsums", "bucket_colsums_d2",
-                                  "edt_sweep", "halo_edt"])
+                                  "edt_sweep", "halo_edt", "fused_tail",
+                                  "fused_tail_slab"])
 def test_kernel_source_is_registered_and_stands_alone(name):
     """Each ``csrc/*.cu`` is a registered kernel with a plain C interface
     (no torch headers, so it builds in seconds) and names the TPU kernel
@@ -76,6 +77,23 @@ def test_kernel_source_is_registered_and_stands_alone(name):
     for fn in fns:
         assert f"int {fn}(" in text
     assert name in kernels.launches
+
+
+def test_fused_tail_sources_share_one_tile_body_and_no_library_conv():
+    """K4a and K4b include the same header for the tile, and neither source
+    reaches for a library convolution or matrix product."""
+    from pcc_geo_cnn_v2_tpu_torch.ops import kernels
+
+    for name in ("fused_tail.cu", "fused_tail_slab.cu", "fused_tail.cuh"):
+        text = (kernels.CSRC / name).read_text()
+        for word in ("cudnn", "cublas", "cutlass", "torch/", "ATen"):
+            assert word not in text.lower().replace("cudnn's", ""), \
+                (name, word)
+        if name.endswith(".cu"):
+            assert '#include "fused_tail.cuh"' in text
+    body = (kernels.CSRC / "fused_tail.cuh").read_text()
+    assert "tail_tile" in body and "__float2bfloat16_rn" in body
+    assert "atomic" not in body  # fixed summation order, no float atomics
 
 
 def _no_cuda():
@@ -156,6 +174,67 @@ def test_k5_wrapper_raises_off_cpu():
     with pytest.raises(ValueError, match="CUDA tensor"):
         edt_sweep_sums(vol, vol, vol, thr)
     assert kernels.launches == before
+
+
+@pytest.mark.parametrize("slab", [None, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_wrappers_raise_off_cpu(slab, dtype):
+    from pcc_geo_cnn_v2_tpu_torch.ops import fused_conv as fc
+    from pcc_geo_cnn_v2_tpu_torch.ops import kernels
+
+    before = dict(kernels.launches)
+    x = torch.zeros(2, 16, 16, 16, 16, dtype=dtype, device="meta")
+    w = torch.zeros(27, 16, 16, dtype=dtype, device="meta")
+    b = torch.zeros(16, device="meta")
+    kw = dict(spatial=16, channels=16, dtype=dtype)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        if slab is None:
+            fc.fused_residual_tail(x, w, b, w, b, **kw)
+        else:
+            fc.fused_residual_tail_slab(x, w, b, w, b, slab=slab, **kw)
+    assert kernels.launches == before
+
+
+def test_k4_wrappers_refuse_what_the_kernels_are_not_built_for():
+    """Off the CPU there is no plain version to fall back to: a channel
+    count or a slab depth outside the compiled set raises."""
+    from pcc_geo_cnn_v2_tpu_torch.ops import fused_conv as fc
+
+    x = torch.zeros(1, 8, 8, 8, 8, device="meta")
+    w = torch.zeros(27, 8, 8, device="meta")
+    b = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError, match="channels"):
+        fc.fused_residual_tail(x, w, b, w, b, spatial=8, channels=8,
+                               dtype=torch.float32)
+    x = torch.zeros(1, 8, 8, 8, 16, device="meta")
+    w = torch.zeros(27, 16, 16, device="meta")
+    b = torch.zeros(16, device="meta")
+    with pytest.raises(ValueError, match="multiple of slab"):
+        fc.fused_residual_tail_slab(x, w, b, w, b, spatial=8, channels=16,
+                                    slab=2, dtype=torch.float32)
+
+
+def test_cpu_wrappers_of_the_fused_tails_take_the_plain_versions():
+    from pcc_geo_cnn_v2_tpu_torch.ops import fused_conv as fc
+    from pcc_geo_cnn_v2_tpu_torch.ops import kernels
+
+    before = dict(kernels.launches)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 8, 8, 4))
+                         .astype(np.float32))
+    w1, w2 = (rng.standard_normal((3, 3, 3, 4, 4)).astype(np.float32) * 0.2
+              for _ in range(2))
+    b1, b2 = (rng.standard_normal(4).astype(np.float32) for _ in range(2))
+    for dtype in (torch.float32, torch.bfloat16):
+        kw = dict(spatial=8, channels=4, dtype=dtype)
+        want = fc.fused_residual_tail_plain(x, w1, b1, w2, b2, **kw)
+        assert torch.equal(fc.fused_residual_tail(x, w1, b1, w2, b2, **kw),
+                           want)
+        assert torch.equal(
+            fc.fused_residual_tail_slab(x, w1, b1, w2, b2, slab=4, **kw),
+            fc.fused_residual_tail_slab_plain(x, w1, b1, w2, b2, slab=4,
+                                              **kw))
+    assert kernels.launches == before  # plain versions are not launches
 
 
 def test_cpu_wrappers_of_the_sweep_kernels_take_the_plain_versions():

@@ -78,6 +78,45 @@ def test_single_layer_matches_flax(transpose, stride, size, kernel):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_single_layer_bf16_matches_flax(transpose, stride):
+    """``dtype=bfloat16`` as flax computes it: operands cast to bf16, f32
+    sums rounded once, bias added in bf16, result bf16 — both as the
+    layer's own type and as the type of one call. Sums differ in order, so
+    an element may round the other way: at most one bf16 step (2^-8
+    relative), and rarely."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(stride)
+    cls, tcls = ((nn.ConvTranspose, ConvTranspose) if transpose
+                 else (nn.Conv, Conv))
+    layer = cls(5, (3,) * 3, strides=(stride,) * 3, padding="SAME",
+                dtype=jnp.bfloat16)
+    x = rng.standard_normal((2, 8, 8, 8, 3)).astype(np.float32)
+    p = jax.tree_util.tree_map(np.array,
+                               layer.init(jax.random.PRNGKey(0), x))
+    p["params"]["bias"] += rng.standard_normal(5).astype(np.float32)
+    want = layer.apply(p, x)
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    name = "ConvTranspose_0" if transpose else "Conv_0"
+    state = {k.split(".", 1)[1]: v for k, v in
+             params_from_jax({name: p["params"]}).items()}
+    typed = tcls(3, 5, 3, stride, dtype=torch.bfloat16)
+    plain = tcls(3, 5, 3, stride)
+    for t in (typed, plain):
+        t.load_state_dict(state)
+        assert t.weight.dtype == torch.float32  # parameters stay f32
+    with torch.no_grad():
+        outs = [typed(_ncdhw(x)), plain(_ncdhw(x), dtype=torch.bfloat16)]
+    assert torch.equal(*outs) and outs[0].dtype == torch.bfloat16
+    got = outs[0].permute(0, 2, 3, 4, 1).float().numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=2.0 ** -9)
+    assert (got == want).mean() > 0.99
+
+
 @pytest.mark.parametrize("name", ["c3p", "c3"])
 @pytest.mark.parametrize("part", ["analysis_t", "synthesis_t",
                                   "hyper_analysis_t", "hyper_synthesis_t"])

@@ -2,20 +2,22 @@
 """Where the time goes in the PyTorch port's encode and decode paths.
 
     python3 tools/torch_profile_main_path.py [--seed 300] [--top 20]
+                                             [--paths d1 A B C C_bf16 xla_bf16]
 
-Runs the three paths ``chip_smoke.py`` drives (10-bit ``figure_cloud``
-with normals, octree level 4, c3p at full width with
-``bench_c3p.msgpack.gz``, batch 32) — the d1 path, path A (d1_mse + d2_mse
-with normals, kernel K3) and path B (``sweep_backend="pallas"``, kernel
-K5) — each once to warm up, then once under ``torch.profiler`` on one GPU,
-and prints for each:
+Runs the paths ``chip_smoke.py`` drives (10-bit ``figure_cloud`` with
+normals, octree level 4, c3p at full width with ``bench_c3p.msgpack.gz``,
+batch 32) — the d1 path, path A (d1_mse + d2_mse with normals, kernel K3),
+path B (``sweep_backend="pallas"``, kernel K5), path C
+(``conv_backend="pallas"``, kernels K4a / K4b) in f32 and in bf16, and the
+cuDNN backend in bf16 beside it — each once to warm up, then once under
+``torch.profiler`` on one GPU, and prints for each:
 
 - the codec's host phase times (``logging`` INFO lines of
   ``pcc_geo_cnn_v2_tpu_torch.codec``),
 - the wall time of encode and decode and the device-busy share (summed
   CUDA kernel time over wall time; kernels run on one stream),
 - the top device kernels by total CUDA time, grouped into families
-  (cuDNN convolution, sort, the port's K1/K2/K3/K5 kernels, other).
+  (cuDNN convolution, sort, the port's K1–K5 kernels, other).
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -40,10 +42,28 @@ FAMILIES = (("K1 bucket_colsums", ("bucket_colsums",)),
             ("K2 halo_edt", ("halo_zpass", "halo_plane")),
             ("K3 bucket_colsums_d2", ("bucket_d2",)),
             ("K5 edt_sweep", ("sweep_zpass", "sweep_plane")),
+            ("K4a fused_tail", ("tail_kernel",)),
+            ("K4b fused_tail_slab", ("tail_slab_kernel",)),
             ("convolution", ("conv", "cudnn", "sm90_xmma", "implicit",
                              "gemm", "wgrad", "dgrad", "fprop")),
             ("sort", ("sort", "radix")),
             ("copy / fill", ("copy", "fill", "memset", "memcpy")))
+
+
+# key → (title, BlockCodec / build_model arguments, encode arguments)
+PATHS = {
+    "d1": ("d1 path", {}, {}),
+    "A": ("path A (d1_mse + d2_mse, normals)", {},
+          dict(opt_metrics=("d1_mse", "d2_mse"), with_normals=True)),
+    "B": ("path B (sweep_backend='pallas')", dict(sweep_backend="pallas"),
+          {}),
+    "C": ("path C (conv_backend='pallas', f32)",
+          dict(conv_backend="pallas"), {}),
+    "C_bf16": ("path C (conv_backend='pallas', bf16)",
+               dict(conv_backend="pallas", dtype="bfloat16"), {}),
+    "xla_bf16": ("cuDNN backend in bf16 (conv_backend='xla')",
+                 dict(dtype="bfloat16"), {}),
+}
 
 
 def family(name):
@@ -67,6 +87,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=300)
     ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--paths", nargs="+", default=list(PATHS),
+                    choices=list(PATHS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -85,20 +107,21 @@ def main():
     params = load_asset_tree(
         REPO / "pcc_geo_cnn_v2_tpu/assets/bench_c3p.msgpack.gz")
 
-    def make(backend):
-        return BlockCodec(build_model("c3p"), params, block_size=64,
-                          batch_blocks=32, sweep_backend=backend)
+    def make(sweep_backend="bucket", **model_kw):
+        return BlockCodec(build_model("c3p", **model_kw), params,
+                          block_size=64, batch_blocks=32,
+                          sweep_backend=sweep_backend)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"card: {card}; {len(blocks)} blocks")
-    paths = (("d1 path", make("bucket"), {}),
-             ("path A (d1_mse + d2_mse, normals)", make("bucket"),
-              dict(opt_metrics=("d1_mse", "d2_mse"), with_normals=True)),
-             ("path B (sweep_backend='pallas')", make("pallas"), {}))
-    for name, codec, kw in paths:
-        rc = profile_path(name, codec, blocks, binstr, points6, kw, args.top)
+    for key in args.paths:
+        name, codec_kw, kw = PATHS[key]
+        if "dtype" in codec_kw:
+            codec_kw = dict(codec_kw, dtype=getattr(torch, codec_kw["dtype"]))
+        rc = profile_path(name, make(**codec_kw), blocks, binstr, points6, kw,
+                          args.top)
         if rc:
             return rc
     return 0
