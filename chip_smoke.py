@@ -55,8 +55,12 @@ exit):
    largest value, bf16 within 2 bf16 steps (``bf16_steps``), two launches
    bit-identical, N = 1 equal to row 0 of N = 32, and K4b equal to K4a bit
    for bit at 32³×16 (slab seams). Each is timed beside the cuDNN chain
-   conv → relu → conv → relu → add on the same tensors (``library_ms``).
-   The stage shapes of c3 that c3p lacks, and a volume no tile divides, are
+   conv → relu → conv → relu → add on the same tensors (``library_ms``),
+   both as bursts of four calls between two events (a pipelined caller's
+   time per call: the wrapper's host time overlaps the device's); the
+   share of the bound reached and ``ms / library_ms`` go into each row.
+   The stage shapes of c3 that c3p lacks, a volume no tile divides, and
+   one N = 1 case per kernel (the small grid the depth ranges are for) are
    checked on random inputs.
 10. Path C, ``conv_backend="pallas"``, f32: d1 encode → container →
    decode on the whole cloud, bit-exact; encoder D1 PSNR equals the host
@@ -72,7 +76,8 @@ The launch counts are set to 0 just before each path and read just after.
 Prints a ``kernels`` JSON line (per kernel: launches on its path, max
 error against the plain version, its median time, the plain time, the
 least time the card could take for the same work and, for K4, the cuDNN
-chain's time), the card line, and last ``{"ok": true, "device": {...}}``.
+chain's time, the share of the bound reached and ms / library), the card
+line, and last ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 """
 
@@ -141,8 +146,10 @@ def card_line():
         check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps, warm=True):
-    """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events)."""
+def time_ms(fn, reps, warm=True, burst=1):
+    """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events);
+    with ``burst`` > 1 each run is that many calls back to back and the
+    time is per call."""
     import torch
 
     if warm:
@@ -152,10 +159,11 @@ def time_ms(fn, reps, warm=True):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(burst):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / burst)
     return float(np.median(times))
 
 
@@ -467,7 +475,7 @@ def check_k4(args, against=None):
         steps = float(bf16_steps(got, ref).max())
         assert steps <= 2.0 and equal >= 0.99, \
             f"{name} {S}^3x{C} bf16: {steps} steps, {equal} equal"
-    ms = time_ms(lambda: fn(x, w1, b1, w2, b2, **kw), reps=5)
+    ms = time_ms(lambda: fn(x, w1, b1, w2, b2, **kw), reps=5, burst=4)
     plain_ms = time_ms(lambda: plain(x, w1, b1, w2, b2, **kw), reps=2)
 
     # the cuDNN chain on the same tensors, in the layout given
@@ -486,8 +494,8 @@ def check_k4(args, against=None):
     lib = chain(x_last).permute(0, 2, 3, 4, 1)
     torch.cuda.synchronize()
     lib_err = float((lib.float() - ref.float()).abs().max())
-    lib_last = time_ms(lambda: chain(x_last), reps=3)
-    lib_first = time_ms(lambda: chain(x_first), reps=3)
+    lib_last = time_ms(lambda: chain(x_last), reps=3, burst=4)
+    lib_first = time_ms(lambda: chain(x_first), reps=3, burst=4)
 
     flop = 2 * 2 * 27 * C * C * S ** 3 * n
     nbytes = (2 * x.numel() + w1.numel() + w2.numel()) * x.element_size()
@@ -495,11 +503,13 @@ def check_k4(args, against=None):
                     else PEAK_BF16_OPS_S)
     t_bytes = nbytes / PEAK_BYTES_S
     tag = "f32" if dtype == torch.float32 else "bf16"
+    bound_ms, library_ms = max(t_ops, t_bytes) * 1e3, min(lib_last, lib_first)
     row = dict(shape=f"{n}x{S}^3x{C}", dtype=tag, max_abs_err=err,
                ref_max=scale, equal_share=equal, bf16_steps=steps, ms=ms,
-               plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+               plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
-               library_ms=min(lib_last, lib_first),
+               bound_share=bound_ms / ms, library_ms=library_ms,
+               ms_over_library=ms / library_ms,
                library_channels_last_ms=lib_last,
                library_ncdhw_ms=lib_first, gflop=flop / 1e9)
     log(f"{'K4b' if slab else 'K4a'} ok at {row['shape']} {tag}: max err "
@@ -508,7 +518,9 @@ def check_k4(args, against=None):
         + f", {100 * equal:.3f}% equal, launches bit-identical, N = 1 "
         f"equal; {ms:.3f} ms = {flop / ms / 1e9:.2f} TFLOP/s (plain "
         f"{plain_ms:.3f} ms, bound {row['bound_ms']:.3f} ms by "
-        f"{row['bound_by']}, cuDNN chain {lib_last:.3f} ms channels-last / "
+        f"{row['bound_by']}: {100 * row['bound_share']:.1f}% reached; "
+        f"{row['ms_over_library']:.2f}x the cuDNN chain {lib_last:.3f} ms "
+        f"channels-last / "
         f"{lib_first:.3f} ms NCDHW, its max err {lib_err:.3g})")
     return name, row
 
@@ -517,8 +529,9 @@ def check_k4_other_shapes():
     """Phase 9, the stage shapes c3p does not reach: c3's 8³×32 tail (K4a),
     the 32³×64 and 64³×32 volumes the dispatch rule sends to K4b, and a
     12³ volume that no tile divides (ragged H and W tiles; K4b with
-    ``slab=4``), on seeded random inputs at N = 2, f32 and bf16, against
-    the plain versions."""
+    ``slab=4``), on seeded random inputs at N = 2, and one N = 1 case per
+    kernel (K4a 16³×64: the plan cuts the depth into ranges to fill the
+    card; K4b 64³×16), f32 and bf16, against the plain versions."""
     import torch
 
     from pcc_geo_cnn_v2_tpu_torch.ops import fused_conv as fc
@@ -529,9 +542,10 @@ def check_k4_other_shapes():
         return scale * torch.randn(*shape, device="cuda", generator=gen)
 
     done = []
-    for S, C, slab in ((8, 32, None), (12, 16, None), (12, 16, 4),
-                       (32, 64, 8), (64, 32, 8)):
-        x = rand(2, S, S, S, C, scale=0.5)
+    for S, C, slab, n in ((8, 32, None, 2), (12, 16, None, 2),
+                          (12, 16, 4, 2), (32, 64, 8, 2), (64, 32, 8, 2),
+                          (16, 64, None, 1), (64, 16, 8, 1)):
+        x = rand(n, S, S, S, C, scale=0.5)
         w1, w2 = (rand(27, C, C, scale=0.5 / (27 * C) ** 0.5)
                   for _ in range(2))
         b1, b2 = rand(C, scale=0.3), rand(C, scale=0.3)
@@ -550,9 +564,9 @@ def check_k4_other_shapes():
                 assert err <= 1e-4 * scale, (S, C, slab, err, scale)
             else:
                 assert float(bf16_steps(got, ref).max()) <= 2.0, (S, C, slab)
-        done.append(f"{S}^3x{C}" + (f" slab {slab}" if slab else ""))
-    log("K4 ok at the other stage shapes (N = 2, f32 and bf16, against the "
-        "whole-volume plain version): " + ", ".join(done))
+        done.append(f"{n}x{S}^3x{C}" + (f" slab {slab}" if slab else ""))
+    log("K4 ok at the other stage shapes and at N = 1 (f32 and bf16, "
+        "against the whole-volume plain version): " + ", ".join(done))
 
 
 def host_d1_psnr(points, decoded, r):
@@ -942,7 +956,8 @@ def run(device):
         top = max((r for r in shapes if r["dtype"] == "f32"),
                   key=lambda r: r["gflop"])
         k4[name] = {**{k: top[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "bound_share", "ms_over_library")},
             "max_abs_err": max(r["max_abs_err"] for r in shapes),
             "shapes": shapes}
     rows = []

@@ -17,7 +17,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "build", "load_lib", "load_host_lib"]
+__all__ = ["BUILD_DIR", "build", "load_lib", "loaded", "load_host_lib"]
 
 _SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _SRC_DIR.parent / "_build"
@@ -62,6 +62,11 @@ def build(jobs, force=False):
             os.replace(tmp, _so_path(n))  # atomic: concurrent builds agree
             logs[n] = out
         return logs
+
+
+def loaded(name):
+    """The handle of an already loaded library, else None."""
+    return _libs.get(name)
 
 
 def load_lib(name, src, cmd, setup=None):

@@ -12,6 +12,9 @@ one kernel launch that keeps the intermediate on chip:
 - :func:`fused_residual_tail` — K4a, whole volumes (``csrc/fused_tail.cu``);
 - :func:`fused_residual_tail_slab` — K4b, the same function over D-slabs
   (``csrc/fused_tail_slab.cu``) for the volumes past :data:`MAX_FUSED_ROWS`;
+- :func:`tail_plan` — the launch geometry of both kernels: a block owns an
+  H×W tile of one batch element and rolls a window of planes along a depth
+  range; the plan picks K4a's depth range so that the grid fills the card;
 - :func:`fused_block_stack_apply` — a whole ``BlockStack`` with the strided
   convs through the port's ``Conv`` / ``ConvTranspose`` modules (cuDNN) and
   the tails through the kernels: the ``conv_backend="pallas"`` inference
@@ -38,6 +41,8 @@ which nothing on a CUDA path calls.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -47,18 +52,74 @@ from pcc_geo_cnn_v2_tpu_torch.ops import kernels
 __all__ = ["fused_residual_tail", "fused_residual_tail_plain",
            "fused_residual_tail_slab", "fused_residual_tail_slab_plain",
            "fused_block_stack_apply", "pack_tail_weights", "packed_tails",
-           "MAX_FUSED_ROWS", "KERNEL_CHANNELS", "TILE_DEPTH"]
+           "MAX_FUSED_ROWS", "KERNEL_CHANNELS", "TILE_DEPTH", "TILES",
+           "tail_plan"]
 
 LANES = 128
 # The JAX package's dispatch rule, kept so that each kernel runs at the
 # shapes its TPU twin runs at: volumes of more than this many 128-element
 # rows (S³·C / 128) go to the slab kernel.
 MAX_FUSED_ROWS = 8192
-# what the CUDA kernels are compiled for: channel counts, and the depth of
-# a tile (``slab`` must be a multiple of it)
+# what the CUDA kernels are compiled for: channel counts, the unit of depth
+# ``slab`` must be a multiple of, and per (dtype, channels) the H×W tile of
+# a block and the blocks an SM holds by shared memory (``Geom`` / ``Tile``
+# of csrc/fused_tail.cuh; checked against the built library at first use)
 KERNEL_CHANNELS = (16, 32, 64)
 TILE_DEPTH = 4
 _DTYPES = (torch.float32, torch.bfloat16)
+TILES = {
+    (torch.bfloat16, 16): (8, 16, 2),
+    (torch.bfloat16, 32): (8, 16, 2),
+    (torch.bfloat16, 64): (8, 16, 1),
+    (torch.float32, 16): (16, 16, 1),
+    (torch.float32, 32): (8, 16, 1),
+    (torch.float32, 64): (8, 8, 1),
+}
+H100_SMS = 132
+
+
+def tail_plan(spatial, channels, n, dtype, *, sms=H100_SMS, depth_chunk=None):
+    """Launch geometry of K4a / K4b for ``n`` volumes of ``spatial``³ ×
+    ``channels``: grid ``(tiles · depth_ranges, n)``, block ``b`` of a batch
+    element owning H×W tile ``b % tiles`` and output planes
+    ``[k · depth_chunk, min((k + 1) · depth_chunk, spatial))``, ``k = b //
+    tiles``.
+
+    A depth range of ``d`` planes computes ``d + 2`` intermediate planes
+    (its two seams are recomputed), so long ranges cost least per voxel but
+    give few blocks. With ``depth_chunk=None`` (K4a) the plan takes the
+    range that minimises the rounds ``ceil(blocks / (sms · blocks an SM
+    holds))`` times the per-block work, the longer range on ties (on the
+    H100 the fastest of the ranges 1, 2, 4, ... 32 at every stage shape,
+    ``tools/torch_bench_fused_tail.py --chunks``); K4b passes its
+    ``slab``. Every choice gives the same bits.
+    """
+    return dict(_tail_plan(spatial, channels, n, dtype, sms, depth_chunk))
+
+
+@functools.lru_cache(maxsize=256)
+def _tail_plan(spatial, channels, n, dtype, sms, depth_chunk):
+    if (dtype, channels) not in TILES:
+        raise ValueError(f"no kernel for dtype {dtype}, channels {channels}")
+    th, tw, per_sm = TILES[(dtype, channels)]
+    nth, ntw = -(-spatial // th), -(-spatial // tw)
+    tiles = nth * ntw
+    mid, outv = (th + 2) * (tw + 2), th * tw
+
+    def rounds_cost(chunk):
+        blocks = tiles * -(-spatial // chunk) * n
+        return -(-blocks // (sms * per_sm)) * ((chunk + 2) * mid
+                                               + chunk * outv)
+
+    if depth_chunk is None:
+        depth_chunk = min(range(1, spatial + 1),
+                          key=lambda c: (rounds_cost(c), -c))
+    if not 0 < depth_chunk <= spatial:
+        raise ValueError(f"depth_chunk {depth_chunk} outside 1..{spatial}")
+    ranges = -(-spatial // depth_chunk)
+    return dict(tile_h=th, tile_w=tw, tiles_h=nth, tiles_w=ntw,
+                depth_chunk=depth_chunk, depth_ranges=ranges,
+                grid=(tiles * ranges, n), blocks_per_sm=per_sm)
 
 
 def pack_tail_weights(kernel, dtype=torch.bfloat16, *, oidhw=False):
@@ -160,6 +221,33 @@ def fused_residual_tail_slab_plain(x, w1, b1, w2, b2, *, spatial, channels,
     return out.permute(0, 2, 3, 4, 1).to(dtype).contiguous().reshape(x.shape)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_geometry_checked = False
+
+
+def _check_geometry():
+    """:data:`TILES` must be what the built kernels use (once a process)."""
+    global _geometry_checked
+    if _geometry_checked:
+        return
+    import ctypes
+
+    lib = kernels.load("fused_tail")
+    for (dtype, channels), want in TILES.items():
+        geo = (ctypes.c_int * 3)()
+        err = lib.pcc_fused_tail_geometry(
+            channels, int(dtype == torch.bfloat16), geo)
+        if err or tuple(geo) != want:
+            raise RuntimeError(
+                f"fused_tail: TILES[{dtype}, {channels}] = {want} but the "
+                f"kernel reports {tuple(geo)} (error {err})")
+    _geometry_checked = True
+
+
 def _launch(name, x, w1, b1, w2, b2, spatial, channels, residual, dtype,
             slab=None):
     xv, w1, b1, w2, b2 = _operands(x, w1, b1, w2, b2, spatial, channels,
@@ -176,12 +264,15 @@ def _launch(name, x, w1, b1, w2, b2, spatial, channels, residual, dtype,
     if any(t.data_ptr() % 16 for t in (xv, w1, w2, out)):
         raise ValueError(f"{name}: tensors must be 16-byte aligned")
     lib = kernels.load(name)
+    _check_geometry()
     head = (xv.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), out.data_ptr(), xv.shape[0], spatial, channels)
     tail = (int(residual), int(dtype == torch.bfloat16),
             kernels.stream_ptr(xv.device))
     if slab is None:
-        err = lib.pcc_fused_tail(*head, *tail)
+        plan = tail_plan(spatial, channels, xv.shape[0], dtype,
+                         sms=_sm_count(xv.device))
+        err = lib.pcc_fused_tail(*head, plan["depth_chunk"], *tail)
     else:
         err = lib.pcc_fused_tail_slab(*head, slab, *tail)
     kernels.check_launch(err, name)

@@ -46,9 +46,10 @@ KERNELS = {
         "pcc_edt_sweep": [_P] * 10 + [_I, _I, _I, _P],
         "pcc_edt_sweep_group": [],
     }),
-    # both include csrc/fused_tail.cuh (the shared tile body)
+    # both include csrc/fused_tail.cuh (the shared window body)
     "fused_tail": ("fused_tail.cu", {
-        "pcc_fused_tail": [_P] * 6 + [_I] * 5 + [_P],
+        "pcc_fused_tail": [_P] * 6 + [_I] * 6 + [_P],
+        "pcc_fused_tail_geometry": [_I, _I, _P],
     }),
     "fused_tail_slab": ("fused_tail_slab.cu", {
         "pcc_fused_tail_slab": [_P] * 6 + [_I] * 6 + [_P],
@@ -107,7 +108,11 @@ def _bind(name):
 
 
 def load(name):
-    """ctypes handle of a kernel library, building it on first use."""
+    """ctypes handle of a kernel library, building it on first use (a
+    loaded library is returned as it is: no file is looked at again)."""
+    lib = native.loaded(name)
+    if lib is not None:
+        return lib
     src = CSRC / KERNELS[name][0]
     if _header_newer(name):
         native.build({name: (src, _nvcc_cmd)}, force=True)

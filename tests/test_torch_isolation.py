@@ -80,8 +80,9 @@ def test_kernel_source_is_registered_and_stands_alone(name):
 
 
 def test_fused_tail_sources_share_one_tile_body_and_no_library_conv():
-    """K4a and K4b include the same header for the tile, and neither source
-    reaches for a library convolution or matrix product."""
+    """K4a and K4b include the same header for the window body, neither
+    source reaches for a library convolution or matrix product, and the
+    inner products are tensor-core instructions on staged weights."""
     from pcc_geo_cnn_v2_tpu_torch.ops import kernels
 
     for name in ("fused_tail.cu", "fused_tail_slab.cu", "fused_tail.cuh"):
@@ -92,7 +93,10 @@ def test_fused_tail_sources_share_one_tile_body_and_no_library_conv():
         if name.endswith(".cu"):
             assert '#include "fused_tail.cuh"' in text
     body = (kernels.CSRC / "fused_tail.cuh").read_text()
-    assert "tail_tile" in body and "__float2bfloat16_rn" in body
+    assert "tail_window" in body and "__float2bfloat16_rn" in body
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in body
+    assert "ldmatrix" in body and "cp.async" in body
+    assert "static_assert(SMEM_BYTES <= SMEM_LIMIT" in body
     assert "atomic" not in body  # fixed summation order, no float atomics
 
 
