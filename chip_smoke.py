@@ -18,6 +18,9 @@ exit):
    model on the cloud below): colsum / candmin equal for every k < cnt0,
    equal picks and overflow flags; then again at the overflow rerun's
    shape (K = B³) on every block of the cloud that overflows K = 32768.
+   The edges on seeded random inputs (``check_k1_edges``): blocks without
+   points or candidates, ragged cnt0 / K / P, two launches
+   bit-identical, N = 1 equal to its row of the batch.
 3. K2 (bounded halo EDT + D1 sums) against its plain version: B = 64,
    halo = 12, 64 blocks of halo volumes assembled from that cloud: sum, n,
    unres_cnt and the packed outlier bytes equal.
@@ -74,10 +77,12 @@ exit):
 
 The launch counts are set to 0 just before each path and read just after.
 Prints a ``kernels`` JSON line (per kernel: launches on its path, max
-error against the plain version, its median time, the plain time, the
-least time the card could take for the same work and, for K4, the cuDNN
-chain's time, the share of the bound reached and ms / library), the card
-line, and last ``{"ok": true, "device": {...}}``.
+error against the plain version, its median time (K1, K3 and K4 per
+call in bursts of four calls, so that the wrapper's host time overlaps
+the kernels), the plain time, the least time the card could take for the
+same work and the share of it reached (K1 at the chunk and the rerun, K4)
+and, for K4, the cuDNN chain's time and ms / library), the card line, and
+last ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 """
 
@@ -107,12 +112,19 @@ PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 67e12 / 4
 PEAK_F32_OPS_S = 67e12
 PEAK_BF16_OPS_S = 989e12  # dense bf16 on the tensor cores
-# int32 operations per (point, candidate) pair that K1's function needs:
-# 3 subtractions and 3 multiply(-add)s for d², the running min, the
-# column-sum add and the column min. K3 needs the same per pair, plus one
-# plane² (3 multiplies, 2 adds, 1 square: 6 f32 operations) per candidate
-# (candplane) and at least one per point (colplane)
-K1_OPS_PER_PAIR = 9
+# f32 operations per (point, candidate) pair that K1's function needs. d²
+# of integer coordinates below 64 is exact in f32 as |p|² + |c|² - 2 p·c
+# with -2c and |c|² computed once per candidate: 3 multiply-adds (6
+# operations, as the data sheet counts them) and 1 add; then the compare
+# with the running minimum and the column minimum. The column sum is paid
+# where a running minimum changes (a few times per point), not per pair,
+# and is not counted. The earlier count, printed beside it: 9 int32
+# operations per pair at the int32 rate (d² as 3 subtractions and 3
+# multiply(-add)s, and a column-sum add per pair). K3 needs the same per
+# pair, plus one plane² (3 multiplies, 2 adds, 1 square: 6 f32 operations)
+# per candidate (candplane) and at least one per point (colplane)
+K1_F32_OPS_PER_PAIR = 9
+K1_INT32_OPS_PER_PAIR = 9
 K3_F32_OPS_PER_PLANE = 6
 # K5, int32 operations the function needs. cnt and ba of every threshold
 # come from one pass over the voxels (find the voxel's threshold bin, add 1
@@ -210,19 +222,66 @@ def check_k1(codec, pts, x_hat, K, reps=10, plain_reps=2):
     pp, op = bsw.select_thresholds_d1_bucket(
         xh, pts, colsums_fn=bsw.bucket_colsums_plain, **sel)
     assert torch.equal(pk, pp) and torch.equal(ok, op), "K1 picks differ"
-    ms = time_ms(lambda: bsw.bucket_colsums(*args), reps=reps)
+    ms = time_ms(lambda: bsw.bucket_colsums(*args), reps=reps, burst=4)
     plain_ms = time_ms(lambda: bsw.bucket_colsums_plain(*args),
                        reps=plain_reps)
     pairs = int((npts.to(torch.int64) * cnt0c.to(torch.int64)).sum())
     nbytes = (pts.numel() + pos.numel() + 2 * len(npts)) * 4 \
         + 2 * pos.numel() * 4
-    bound_ms, by = bound(nbytes, K1_OPS_PER_PAIR * pairs)
+    bound_ms, by = bound(nbytes, 0, K1_F32_OPS_PER_PAIR * pairs)
+    bound_int32_ms = bound(nbytes, K1_INT32_OPS_PER_PAIR * pairs)[0]
+    plan = bsw.bucket_plan(len(npts), pts.shape[1])
     log(f"K1 ok at K = {K}: {len(npts)} blocks, cnt0 {int(cnt0.min())}.."
         f"{int(cnt0.max())}, {pairs} point-candidate pairs, "
-        f"overflow {int(ok.sum())}, {ms:.3f} ms (plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.3f} ms by {by})")
+        f"overflow {int(ok.sum())}, plan {plan['threads']} threads, grid "
+        f"{plan['grid']}; {ms:.3f} ms (plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.3f} ms by {by}: {100 * bound_ms / ms:.1f}% "
+        f"reached; the int32 count's bound {bound_int32_ms:.3f} ms)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by)
+                bound_ms=bound_ms, bound_by=by, bound_share=bound_ms / ms)
+
+
+def check_k1_edges():
+    """Phase 2, the edges on seeded random inputs at B = 64: a block
+    without points and one without candidates, cnt0 values that are not
+    multiples of the kernel's 512-candidate tile, K and P that are not
+    multiples of 32 or of a CTA's points, padding rows inside the point
+    budget. K1 must equal its plain version, two launches must give the
+    same bits, and N = 1 must equal that block's row of the batch of 32."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.ops import bucket_sweep as bsw
+
+    rng = np.random.default_rng(6)
+    n, P, K = 32, 1000, 4003
+    npts = rng.integers(1, P + 1, n)
+    cnt0 = rng.integers(1, K + 1, n)
+    npts[3], cnt0[5] = 0, 0
+    cnt0[:3] = (K, 512, 37)
+    pts = np.full((n, P, 3), -1, np.int32)
+    for i, m in enumerate(npts):
+        pts[i, :m] = rng.integers(0, BLOCK, (m, 3))
+    pos = np.stack([rng.permutation(BLOCK ** 3)[:K] for _ in range(n)])
+    dev = "cuda"
+    args = [torch.as_tensor(a.astype(np.int32), device=dev)
+            for a in (pts, pos, cnt0, npts)]
+    got = bsw.bucket_colsums(*args, BLOCK)
+    again = bsw.bucket_colsums(*args, BLOCK)
+    ref = bsw.bucket_colsums_plain(*args, BLOCK)
+    ones = [bsw.bucket_colsums(*(a[i:i + 1] for a in args), BLOCK)
+            for i in (0, 3, 7)]
+    torch.cuda.synchronize()
+    for name, g, r in zip(("colsum", "candmin"), got, ref):
+        err = int((g - r).abs().max())
+        assert err == 0, f"K1 edges: {name} differs from plain ({err})"
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "K1: two launches differ"
+    for i, res in zip((0, 3, 7), ones):
+        assert all(torch.equal(a[0], b[i]) for a, b in zip(res, got)), \
+            f"K1: N = 1 differs from row {i} of the batch"
+    log(f"K1 edges ok (B = {BLOCK}, N = {n}, P = {P}, K = {K}; npts 0 and "
+        f"cnt0 0, 512, 37 present): equal to plain, two launches "
+        f"bit-identical, N = 1 equal to its row")
 
 
 def check_k2(occ, mask, origins):
@@ -304,7 +363,7 @@ def check_k3(codec, pts, nrm, x_hat, K, reps=10, plain_reps=2):
     pp, op = bsw.select_thresholds_d1_bucket(
         xh, pts, colsums_d2_fn=bsw.bucket_colsums_d2_plain, **sel)
     assert torch.equal(pk, pp) and torch.equal(ok, op), "K3 picks differ"
-    ms = time_ms(lambda: bsw.bucket_colsums_d2(*args), reps=reps)
+    ms = time_ms(lambda: bsw.bucket_colsums_d2(*args), reps=reps, burst=4)
     plain_ms = time_ms(lambda: bsw.bucket_colsums_d2_plain(*args),
                        reps=plain_reps)
     shape = pos.shape
@@ -321,8 +380,8 @@ def check_k3(codec, pts, nrm, x_hat, K, reps=10, plain_reps=2):
     # (colsum 8 bytes, the others 4)
     nbytes = (pts.numel() + nrm.numel() + pos.numel() + 2 * len(npts)) * 4 \
         + pos.numel() * 20
-    bound_ms, by = bound(nbytes, K1_OPS_PER_PAIR * pairs,
-                         K3_F32_OPS_PER_PLANE * planes)
+    bound_ms, by = bound(nbytes, 0, K1_F32_OPS_PER_PAIR * pairs
+                         + K3_F32_OPS_PER_PLANE * planes)
     log(f"K3 ok at K = {K}: {len(npts)} blocks, {pairs} point-candidate "
         f"pairs, d1 outputs equal K1's, candplane err 0, colplane max err "
         f"{err_col:.3g} (values up to {float(ref[2][valid].max()):.4g}), "
@@ -341,9 +400,9 @@ def sweep_kernel_ms(codec, pts, nrm, x_hat, K):
     pts, pos, _, cnt0c, npts, _ = sweep_args(codec, pts, x_hat, K)
     nrm = nrm.contiguous()
     return (time_ms(lambda: bsw.bucket_colsums(pts, pos, cnt0c, npts, BLOCK),
-                    reps=3),
+                    reps=3, burst=4),
             time_ms(lambda: bsw.bucket_colsums_d2(pts, nrm, pos, cnt0c, npts,
-                                                  BLOCK), reps=3))
+                                                  BLOCK), reps=3, burst=4))
 
 
 def check_k5(codec, pts, x_hat):
@@ -732,6 +791,7 @@ def run(device):
             cnt[1] += res[key][:hi - lo].numel()
         if lo == 0:
             k1 = check_k1(codec, pts, res["x_hat"], codec.bucket_k)
+            check_k1_edges()
             k3 = check_k3(codec, pts, nrm, res["x_hat"], codec.bucket_k)
             k5 = check_k5(codec, pts, res["x_hat"])
         # the rows the codec re-sweeps at K = B³

@@ -42,7 +42,8 @@ from pcc_geo_cnn_v2_tpu_torch.ops.threshold_sweep import (
     select_from_sweep,
 )
 
-__all__ = ["bucket_colsums", "bucket_colsums_plain", "bucket_colsums_d2",
+__all__ = ["bucket_colsums", "bucket_colsums_plain", "bucket_plan",
+           "check_k1_limits", "bucket_colsums_d2",
            "bucket_colsums_d2_plain", "check_normals", "sorted_candidates",
            "bucket_sweep_sums", "select_thresholds_d1_bucket"]
 
@@ -53,6 +54,7 @@ _CHUNK_ELEMS = 1 << 24  # point × candidate tile of the plain version
 _ROW_BITS = 18
 _FIX = float(1 << 20)
 MAX_NORMAL = 32.0
+K1_THREADS = 128  # threads of a K1 sweep CTA (NT of csrc/bucket_colsums.cu)
 
 
 def _cand_coords(pos, size):
@@ -89,10 +91,34 @@ def bucket_colsums_plain(pts, pos, cnt0, npts, size):
     return colsum, candmin
 
 
+def bucket_plan(n_blocks, n_points):
+    """Launch plan of K1 for ``n_blocks`` blocks of ``n_points`` point rows:
+    dict(threads, grid=(point tiles, n_blocks)).
+
+    Thread t of point tile i takes point row ``i · threads + t`` of its
+    block and sweeps every candidate of it. The grid follows the batch's
+    shape, not its point counts (CTAs past a block's points return at
+    once), so a block's outputs do not depend on the batch around it.
+    """
+    return dict(threads=K1_THREADS,
+                grid=(-(-n_points // K1_THREADS), n_blocks))
+
+
+def check_k1_limits(n_points, size):
+    """Raise where K1's kernel would not be exact: its column sums wrap in
+    32 bits (``n_points · 3 (size-1)² < 2^32``) and its distances are f32
+    (``6 (size-1)² < 2^24``). The plain version is exact at any size."""
+    if (n_points * 3 * (size - 1) ** 2 >= 1 << 32
+            or 6 * (size - 1) ** 2 >= 1 << 24):
+        raise ValueError(f"block size {size} / point budget {n_points}: "
+                         "K1's 32-bit column sums or f32 distances not exact")
+
+
 def bucket_colsums(pts, pos, cnt0, npts, size):
     """K1: prefix-min column sums and column minima of the sorted
-    candidates. CUDA tensors launch ``csrc/bucket_colsums.cu``; CPU tensors
-    take :func:`bucket_colsums_plain`. Same outputs either way."""
+    candidates. CUDA tensors launch ``csrc/bucket_colsums.cu`` under
+    :func:`bucket_plan` (within :func:`check_k1_limits`); CPU tensors take
+    :func:`bucket_colsums_plain`. Same outputs either way."""
     if pos.device.type == "cpu":
         return bucket_colsums_plain(pts, pos, cnt0, npts, size)
     n_blocks, K = pos.shape
@@ -101,18 +127,21 @@ def bucket_colsums(pts, pos, cnt0, npts, size):
     kernels.check_cuda_tensor(pos, "pos", torch.int32)
     kernels.check_cuda_tensor(cnt0, "cnt0", torch.int32, (n_blocks,))
     kernels.check_cuda_tensor(npts, "npts", torch.int32, (n_blocks,))
+    check_k1_limits(P, size)
+    plan = bucket_plan(n_blocks, P)
     lib = kernels.load("bucket_colsums")
-    colsum = torch.zeros(n_blocks, K, dtype=torch.int32, device=pos.device)
-    candmin = torch.full((n_blocks, K), BIG, dtype=torch.int32,
-                         device=pos.device)
+    dev = pos.device
+    colsum = torch.empty(n_blocks, K, dtype=torch.int64, device=dev)
+    candmin = torch.empty(n_blocks, K, dtype=torch.int64, device=dev)
+    work = torch.empty(lib.pcc_bucket_colsums_work_ints(n_blocks, K),
+                       dtype=torch.int32, device=dev)
     err = lib.pcc_bucket_colsums(
         pts.data_ptr(), pos.data_ptr(), cnt0.data_ptr(), npts.data_ptr(),
-        colsum.data_ptr(), candmin.data_ptr(), n_blocks, P, K, size,
-        kernels.stream_ptr(pos.device))
+        colsum.data_ptr(), candmin.data_ptr(), work.data_ptr(), n_blocks, P,
+        K, size, plan["threads"], plan["grid"][0], kernels.stream_ptr(dev))
     kernels.check_launch(err, "bucket_colsums")
     kernels.launches["bucket_colsums"] += 1
-    # colsum accumulates as uint32 (exact for every P ≤ B³ at B = 64)
-    return colsum.to(torch.int64) & 0xFFFFFFFF, candmin.to(torch.int64)
+    return colsum, candmin
 
 
 def _plane2(diff, nrm):

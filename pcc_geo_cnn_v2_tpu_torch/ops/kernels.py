@@ -33,7 +33,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "bucket_colsums": ("bucket_colsums.cu", {
-        "pcc_bucket_colsums": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "pcc_bucket_colsums": [_P] * 7 + [_I] * 6 + [_P],
+        "pcc_bucket_colsums_work_ints": [_I, _I],
     }),
     "halo_edt": ("halo_edt.cu", {
         "pcc_halo_edt": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
