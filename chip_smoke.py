@@ -34,7 +34,13 @@ exit):
    chunk: ab, ba, cnt equal for every threshold — with the point lists
    (sparse tail outside the kernel, the main path's call) and without
    (the kernel computes every threshold) — and picks equal to the bucket
-   backend's.
+   backend's; the CUDA launches of one call counted under
+   ``torch.profiler`` (at most 3). The edges on seeded random inputs at
+   B = 64 and B = 90 (``check_k5_edges``): blocks without candidates or
+   points, t_end = 0, one candidate far from every point, an all-occupied
+   block, a NaN, threshold values in x_hat; two launches bit-identical,
+   N = 1 equal to its row of the batch, the same launches a call at two
+   T.
 6. d1 path: ``compress_blocks_device_opt`` → container →
    ``decompress_blocks``. The decoded blocks must equal the encoder's
    embedded reconstruction bit for bit, the encoder's device D1 PSNR must
@@ -77,10 +83,11 @@ exit):
 
 The launch counts are set to 0 just before each path and read just after.
 Prints a ``kernels`` JSON line (per kernel: launches on its path, max
-error against the plain version, its median time (K1, K3 and K4 per
+error against the plain version, its median time (K1, K3, K4 and K5 per
 call in bursts of four calls, so that the wrapper's host time overlaps
 the kernels), the plain time, the least time the card could take for the
-same work and the share of it reached (K1 at the chunk and the rerun, K4)
+same work and the share of it reached (K1 at the chunk and the rerun, K4,
+K5)
 and, for K4, the cuDNN chain's time and ms / library), the card line, and
 last ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -129,13 +136,20 @@ K3_F32_OPS_PER_PLANE = 6
 # K5, int32 operations the function needs. cnt and ba of every threshold
 # come from one pass over the voxels (find the voxel's threshold bin, add 1
 # and dt_orig into it: 3 operations per voxel) and a cumulative sum over
-# the thresholds. The EDT is needed only at the thresholds t < t_end =
-# min(first_empty, t_small): there, per voxel, the compare and two
-# 2-operation column scans (5 operations); plus, per occupied voxel with
-# result D, the ~pi D lattice points of its disc search at 2 operations
-# (add, min) each — summed over voxels that is 2 pi ab
+# the thresholds. The sets are nested (S_t = S_{t+1} ∪ {bin = t + 1}), so
+# a design that adds the voxels whose bin it reaches touches each voxel
+# once, as counted above. The EDT is needed only at the thresholds t <
+# t_end = min(first_empty, t_small): there, per occupied voxel, one add of
+# its distance; plus, per occupied voxel with result D, the ~pi D rows of
+# its disc search at 2 operations (add, min) each — summed over voxels
+# that is 2 pi ab. Printed beside it: the bound of designs that build
+# each set (a membership compare per voxel and EDT threshold, as the
+# kernel does) and the earlier count (5 per voxel and EDT threshold: the
+# compare and two 2-operation column scans)
 K5_OPS_PER_VOXEL_ONCE = 3
-K5_OPS_PER_VOXEL_EDT = 5
+K5_OPS_PER_OCCUPIED_EDT = 1
+K5_OPS_PER_VOXEL_EDT_SETS = 1
+K5_OPS_PER_VOXEL_EDT_COLUMNS = 5
 # Encoder-side D2 PSNR against the host KD-tree oracle. Both take true
 # nearest neighbours, but on an integer grid most neighbours at distance
 # > 0 are tied, the plane distance depends on which tied neighbour is
@@ -405,6 +419,20 @@ def sweep_kernel_ms(codec, pts, nrm, x_hat, K):
                                                   BLOCK), reps=3, burst=4))
 
 
+def k5_cuda_launches(call):
+    """CUDA kernels one K5 call launches, counted by torch.profiler (every
+    K5 kernel's name holds ``edt_sweep``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if "edt_sweep" in e.key and "cudaLaunch" not in e.key)
+
+
 def check_k5(codec, pts, x_hat):
     """Phase 5: K5 vs its plain version on one canonical chunk, and its
     picks vs the bucket backend's."""
@@ -439,29 +467,118 @@ def check_k5(codec, pts, x_hat):
     bucket = codec._sweep(x_hat, pts, occ, ("d1_mse",), (np.inf,))
     assert torch.equal(picks, bucket), "K5 picks differ from the bucket's"
     call = lambda: es.edt_sweep_sums(xh, occ, dt, thr, t_end)
-    ms = time_ms(call, reps=5)
+    cuda_launches = k5_cuda_launches(call)
+    assert 0 < cuda_launches <= 3, cuda_launches
+    ms = time_ms(call, reps=5, burst=4)
     plain_ms = time_ms(lambda: es.d1_sweep_sums_plain(xh, occ, dt, thr,
                                                       t_end), reps=1,
                        warm=False)
     n, T = xh.shape[0], thr.shape[0]
     tidx = torch.arange(T, device=xh.device)[None, :]
     ab_edt = torch.where(tidx < t_end[:, None], main[0], 0.0).double().sum()
-    ops = BLOCK ** 3 * (K5_OPS_PER_VOXEL_ONCE * n
-                        + K5_OPS_PER_VOXEL_EDT * int(t_end.sum())) \
-        + 2 * np.pi * float(ab_edt)
-    # x_hat (f32), dt_orig (int32) and occ (uint8) in; three [N, T] out
-    nbytes = n * BLOCK ** 3 * 9 + T * 4 + n * 8 + 3 * n * T * 4
-    bound_ms, by = bound(nbytes, ops)
+    edts = int(t_end.sum())
+    occ_edts = int(((occ > 0).flatten(1).sum(1) * t_end).sum())
+    ops = lambda per_voxel_edt: BLOCK ** 3 * (
+        K5_OPS_PER_VOXEL_ONCE * n + per_voxel_edt * edts) \
+        + K5_OPS_PER_OCCUPIED_EDT * occ_edts + 2 * np.pi * float(ab_edt)
+    # x_hat (f32), dt_orig (f32) and occ (uint8) in; three [N, T] out
+    nbytes = n * BLOCK ** 3 * 9 + T * 4 + n * 4 + 3 * n * T * 4
+    bound_ms, by = bound(nbytes, ops(0))
+    bound_sets_ms = bound(nbytes, ops(K5_OPS_PER_VOXEL_EDT_SETS))[0]
+    bound_cols_ms = bound(nbytes, ops(K5_OPS_PER_VOXEL_EDT_COLUMNS))[0]
     log(f"K5 ok: {n} blocks x {T} thresholds, first_empty "
         f"{int(first_empty.min())}..{int(first_empty.max())}, EDT on t < "
-        f"{int(t_end.min())}..{int(t_end.max())} ({int(t_end.sum())} "
-        f"(block, threshold) EDTs), ab/ba/cnt equal the "
-        f"plain version's for every t (with and without the sparse "
-        f"split), picks equal the bucket backend's; {ms:.3f} ms (plain "
+        f"{int(t_end.min())}..{int(t_end.max())} ({edts} (block, threshold) "
+        f"EDTs, {int((occ > 0).sum())} occupied voxels), ab/ba/cnt equal "
+        f"the plain version's for every t (with and without the sparse "
+        f"split), picks equal the bucket backend's; {cuda_launches} CUDA "
+        f"launches a call (the wrapper counts 1); {ms:.3f} ms (plain "
         f"{plain_ms:.3f} ms; plain with an EDT for every t "
-        f"{plain_full_s * 1e3:.0f} ms; bound {bound_ms:.3f} ms by {by})")
+        f"{plain_full_s * 1e3:.0f} ms; bound {bound_ms:.3f} ms by {by}: "
+        f"{100 * bound_ms / ms:.1f}% reached; the bound of designs that "
+        f"build each set {bound_sets_ms:.3f} ms, "
+        f"{100 * bound_sets_ms / ms:.1f}%; the earlier count's "
+        f"{bound_cols_ms:.3f} ms)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by)
+                bound_ms=bound_ms, bound_by=by, bound_share=bound_ms / ms,
+                cuda_launches_a_call=cuda_launches)
+
+
+def k5_edge_batch(size, n, T, seed):
+    """Seeded K5 inputs with the edges in the first rows: (x_hat, occ,
+    thresholds, t_end). Row 0 has no candidates, row 1 no occupied voxel,
+    row 2 t_end = 0, row 3 one candidate far from every point, row 4 is
+    all occupied, row 5 holds a NaN, row 6 threshold values; the rest are
+    random surfaces."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    thr = np.linspace(0, 1.0, T).astype(np.float32)
+    occ = (rng.random((n, size, size, size)) < 0.02).astype(np.float32)
+    x_hat = np.where(rng.random(occ.shape) < 0.1, 0.5 * occ + 0.5 *
+                     rng.random(occ.shape), 0.0).astype(np.float32)
+    t_end = np.full(n, T, np.int32)
+    x_hat[0] = 0.0
+    occ[1] = 0.0
+    t_end[2] = 0
+    x_hat[3] = 0.0
+    x_hat[3, 0, 0, 0] = 1.0
+    occ[3] = 0.0
+    occ[3, size // 2:, size // 2:, size // 2:] = \
+        rng.random((size - size // 2,) * 3) < 0.05
+    if n > 4:
+        occ[4] = 1.0
+    if n > 5:
+        x_hat[5, 1, 2, 3] = np.nan
+    if n > 6:
+        x_hat[6].reshape(-1)[::97] = thr[rng.integers(0, T, x_hat[6].size
+                                                      // 97 + 1)]
+    return [torch.as_tensor(a, device="cuda")
+            for a in (x_hat, occ, thr, t_end)]
+
+
+def check_k5_edges():
+    """Phase 5, the edges on seeded random inputs (``k5_edge_batch``) at B =
+    64 and at B = 90 (two 64-bit words a bit row): K5 equal to its plain
+    version, two launches bit-identical, N = 1 equal to its row of the
+    batch, and a constant number of CUDA launches a call whatever T."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.ops import edt_sweep as es
+    from pcc_geo_cnn_v2_tpu_torch.ops.edt import squared_edt
+
+    launches = {}
+    for size, n, T in ((BLOCK, 8, 32), (90, 4, 16)):
+        x_hat, occ, thr, t_end = k5_edge_batch(size, n, T, size)
+        dt = squared_edt(occ > 0)
+        got = es.edt_sweep_sums(x_hat, occ, dt, thr, t_end)
+        again = es.edt_sweep_sums(x_hat, occ, dt, thr, t_end)
+        ones = {i: es.edt_sweep_sums(x_hat[i:i + 1], occ[i:i + 1],
+                                     dt[i:i + 1], thr, t_end[i:i + 1])
+                for i in (3, n - 1)}
+        ref = es.d1_sweep_sums_plain(x_hat, occ, dt, thr, t_end)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("ab", "ba", "cnt"), got, ref):
+            err = float((g - r).abs().max())
+            assert err == 0, f"K5 edges B = {size}: {name} differs ({err})"
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            "K5: two launches differ"
+        for i, res in ones.items():
+            assert all(torch.equal(a[0], b[i]) for a, b in zip(res, got)), \
+                f"K5: N = 1 differs from row {i} of the batch"
+        ab, ba, cnt = got
+        assert (cnt[0] == 0).all() and (n < 6 or (cnt[5] == 0).all())
+        assert (ab[1][cnt[1] > 0] == 0).all() and (ba[1] > 0).any()
+        assert (ab[2] >= 1e12).all() and (cnt[3, :-1] == 1).all()
+        assert (ab[3, :-1] > 3 * (size // 2 - 1) ** 2).all()
+        launches[T] = k5_cuda_launches(
+            lambda: es.edt_sweep_sums(x_hat, occ, dt, thr, t_end))
+    assert len(set(launches.values())) == 1 and launches[32] <= 3, launches
+    log(f"K5 edges ok (B = 64, N = 8, T = 32; B = 90, N = 4, T = 16: no "
+        f"candidates, no points, t_end = 0, one far candidate, all "
+        f"occupied, a NaN, threshold values): equal to plain, two launches "
+        f"bit-identical, N = 1 equal to its row; CUDA launches a call by T: "
+        f"{launches}")
 
 
 def bf16_steps(got, want):
@@ -794,6 +911,7 @@ def run(device):
             check_k1_edges()
             k3 = check_k3(codec, pts, nrm, res["x_hat"], codec.bucket_k)
             k5 = check_k5(codec, pts, res["x_hat"])
+            check_k5_edges()
         # the rows the codec re-sweeps at K = B³
         cnt0 = (res["x_hat"][:hi - lo].reshape(hi - lo, -1)
                 > codec.thr_dev[0]).sum(-1)

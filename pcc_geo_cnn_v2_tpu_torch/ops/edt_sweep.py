@@ -9,9 +9,12 @@ threshold t, with the candidate set S_t = {x_hat > thresholds[t]}:
 - ``ab_sum(t)`` = Σ_{v occupied} EDT²_{S_t}(v)
 
 and ``(0, 0, INF)`` from the first empty candidate set on. CUDA tensors
-launch ``csrc/edt_sweep.cu`` (:func:`edt_sweep_sums`); CPU tensors take
-:func:`d1_sweep_sums_plain`: per threshold one mask, one
-:func:`~pcc_geo_cnn_v2_tpu_torch.ops.edt.squared_edt` and masked sums.
+launch ``csrc/edt_sweep.cu`` (:func:`edt_sweep_sums`, three kernels a call
+whatever T: threshold bins with cnt / BA histograms, their suffix sums,
+and the EDTs on bit rows in shared memory; :func:`edt_sweep_plan` checks
+its limits); CPU tensors take :func:`d1_sweep_sums_plain`: per threshold
+one mask, one :func:`~pcc_geo_cnn_v2_tpu_torch.ops.edt.squared_edt` and
+masked sums.
 
 With the encoder's point lists (``pts``), thresholds whose candidate set
 has at most ``sparse_k`` voxels take :func:`_sparse_ab_sums` — a
@@ -21,21 +24,32 @@ makes every EDT search long. Both ways are exact, so the sums do not
 depend on where the split falls.
 
 All sums are exact integers (squared distances ≤ 3(B-1)², dt_orig taken as
-int32) rounded to f32 once. dt_orig of a block without occupied voxels
-(a padding row) is capped at 2^24 instead of the EDT's 1e12.
+an integer capped at 2^24) rounded to f32 once. dt_orig of a block without
+occupied voxels (a padding row) is capped at 2^24 instead of the EDT's
+1e12.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from pcc_geo_cnn_v2_tpu_torch.ops import kernels
 from pcc_geo_cnn_v2_tpu_torch.ops.edt import INF, squared_edt
 
-__all__ = ["sweep_bounds", "d1_sweep_sums_plain", "edt_sweep_sums",
-           "d1_sweep_sums"]
+__all__ = ["sweep_bounds", "d1_sweep_sums_plain", "edt_sweep_plan",
+           "spiral_table", "edt_sweep_sums", "d1_sweep_sums"]
 
 DT_CAP = 1 << 24  # integer stand-in for the EDT's INF (blocks without points)
+# The kernel's limits and launch geometry (csrc/edt_sweep.cu)
+K5_T_MAX = 2048        # thresholds: shared histograms of passes 1 and 2
+K5_SIZE_MAX = 128      # a bit row is at most two 64-bit words
+K5_SEG = 16384         # voxels of a pass-1 CTA
+K5_AB_THREADS = 512    # threads of a pass-3 CTA
+K5_BRUTE_MAX = 2048    # candidates a pass-3 CTA lists for brute force
+SMEM_MAX = 232448      # shared memory a CTA can use on Hopper (227 KB)
 
 
 def sweep_bounds(x_hat, thresholds, k):
@@ -107,40 +121,104 @@ def d1_sweep_sums_plain(x_hat, occ, dt_orig, thresholds, t_end=None):
     return _finish(ab, ba, cnt, t_end)
 
 
+def edt_sweep_plan(n, size, T):
+    """K5's pass-1 segments for ``n`` blocks of ``size``³ and ``T``
+    thresholds; raises ``ValueError``, with the reason, on what the kernel
+    does not take.
+
+    :return: (seg — voxels a pass-1 CTA, segments — pass-1 CTAs a block).
+    """
+    if not 1 <= n <= 65535:
+        raise ValueError(f"{n} blocks: the kernel takes 1..65535 a call")
+    if not 1 <= T <= K5_T_MAX:
+        raise ValueError(f"{T} thresholds: pass 1 keeps a histogram of T + 1 "
+                         f"bins in shared memory (T ≤ {K5_T_MAX})")
+    if not 1 <= size <= K5_SIZE_MAX:
+        raise ValueError(f"block size {size}: a bit row is at most two "
+                         f"64-bit words (size ≤ {K5_SIZE_MAX})")
+    words = 1 if size <= 64 else 2
+    vol = size ** 3
+    seg = min(K5_SEG, vol)
+    segments = -(-vol // seg)
+    # pass 3: bit rows, three projections, the candidate list, segment
+    # offsets, and its static arrays
+    smem = (size + 3) * size * words * 8 + K5_BRUTE_MAX * 8 \
+        + (segments + 1) * 4 + (K5_AB_THREADS // 32) * 8 + 8
+    if smem > SMEM_MAX:
+        raise ValueError(f"block size {size}: a threshold's bit rows, "
+                         f"projections and candidate list take {smem} bytes "
+                         f"of shared memory, more than a CTA has "
+                         f"({SMEM_MAX})")
+    # the 64-bit sums: AB ≤ size³ · 3 (size-1)², BA ≤ size³ · 2^24
+    assert vol * max(3 * (size - 1) ** 2, DT_CAP) < 1 << 63
+    return seg, segments
+
+
+def spiral_table(size):
+    """Pass 3's search order: every (dz, dy) in [0, size)², packed as
+    ``dz² + dy² << 14 | dz << 7 | dy`` and sorted, so rows come in order of
+    their distance from the voxel's row and a search stops at the first
+    entry whose dz² + dy² is not below its best value; then, for r in
+    0 .. 2 (size-1)² + 1, the first entry with dz² + dy² ≥ r (where a search
+    starts once the row projection shows no row nearer than r).
+
+    :return: [size² + 2 (size-1)² + 2] int32 numpy array.
+    """
+    dz, dy = (a.ravel() for a in np.meshgrid(np.arange(size),
+                                             np.arange(size), indexing="ij"))
+    table = np.sort(((dz * dz + dy * dy) << 14) | (dz << 7) | dy)
+    start = np.searchsorted(table >> 14, np.arange(2 * (size - 1) ** 2 + 2))
+    return np.concatenate([table, start]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _spiral_on(size, device):
+    return torch.as_tensor(spiral_table(size), device=device)
+
+
 def edt_sweep_sums(x_hat, occ, dt_orig, thresholds, t_end=None):
-    """K5 wrapper: same outputs as :func:`d1_sweep_sums_plain`."""
+    """K5 wrapper: same outputs as :func:`d1_sweep_sums_plain`.
+
+    ``thresholds`` must be ascending (the kernel bins by binary search).
+    """
     if x_hat.device.type == "cpu":
         return d1_sweep_sums_plain(x_hat, occ, dt_orig, thresholds, t_end)
     n, size, T = x_hat.shape[0], x_hat.shape[-1], thresholds.shape[0]
-    if size * size * 6 > 48 * 1024:
-        raise ValueError(f"block size {size} exceeds the plane pass's "
-                         "shared memory (size ≤ 90)")
-    kernels.check_cuda_tensor(x_hat, "x_hat", torch.float32,
-                              (n, size, size, size))
+    seg, S = edt_sweep_plan(n, size, T)
+    shape = (n, size, size, size)
+    kernels.check_cuda_tensor(x_hat, "x_hat", torch.float32, shape)
+    kernels.check_cuda_tensor(dt_orig, "dt_orig", torch.float32, shape)
     kernels.check_cuda_tensor(thresholds, "thresholds", torch.float32, (T,))
-    if tuple(occ.shape) != tuple(x_hat.shape) or \
-            tuple(dt_orig.shape) != tuple(x_hat.shape):
-        raise ValueError("occ and dt_orig must have x_hat's shape")
-    first_empty = sweep_bounds(x_hat, thresholds, 0)[0]
-    t_end = first_empty if t_end is None else \
-        torch.minimum(t_end.to(torch.int32), first_empty).contiguous()
-    occ_u8 = (occ > 0).to(torch.uint8).contiguous()
-    dt_i = _dt_int(dt_orig).contiguous()
-    lib = kernels.load("edt_sweep")
+    if tuple(occ.shape) != shape:
+        raise ValueError("occ must have x_hat's shape")
     dev = x_hat.device
-    scratch = torch.empty(n, lib.pcc_edt_sweep_group(), size ** 3,
-                          dtype=torch.uint8, device=dev)
-    cnt = torch.zeros(n, T, dtype=torch.int32, device=dev)
-    ba = torch.zeros(n, T, dtype=torch.int64, device=dev)
-    ab = torch.zeros(n, T, dtype=torch.int64, device=dev)
+    occ_u8 = (occ if occ.dtype == torch.uint8 else occ > 0).to(
+        torch.uint8).contiguous()
+    t_end = torch.full((n,), T, dtype=torch.int32, device=dev) \
+        if t_end is None else t_end.to(torch.int32).contiguous()
+    kernels.check_cuda_tensor(t_end, "t_end", torch.int32, (n,))
+    i32 = dict(dtype=torch.int32, device=dev)
+    bins = torch.empty(n, size ** 3, dtype=torch.int16, device=dev)
+    hcnt = torch.empty(n, S, T + 1, **i32)
+    hba = torch.empty(n, S, T + 1, dtype=torch.int64, device=dev)
+    seg_max, occ_cnt = torch.empty(n, S, **i32), torch.empty(n, S, **i32)
+    occ_list = torch.empty(n, S * seg, **i32)
+    occ_off = torch.empty(n, S + 1, **i32)
+    te, items = torch.empty(n, **i32), torch.empty(1 + n * T, **i32)
+    cnt, ba, ab = (torch.empty(n, T, dtype=torch.float32, device=dev)
+                   for _ in range(3))
+    lib = kernels.load("edt_sweep")
     err = lib.pcc_edt_sweep(
-        x_hat.data_ptr(), occ_u8.data_ptr(), dt_i.data_ptr(),
-        thresholds.data_ptr(), first_empty.data_ptr(), t_end.data_ptr(),
-        scratch.data_ptr(), cnt.data_ptr(), ba.data_ptr(), ab.data_ptr(), n,
-        size, T, kernels.stream_ptr(dev))
+        x_hat.data_ptr(), occ_u8.data_ptr(), dt_orig.data_ptr(),
+        thresholds.data_ptr(), t_end.data_ptr(), bins.data_ptr(),
+        hcnt.data_ptr(), hba.data_ptr(), seg_max.data_ptr(),
+        occ_list.data_ptr(), occ_cnt.data_ptr(), occ_off.data_ptr(),
+        te.data_ptr(), items.data_ptr(), _spiral_on(size, dev).data_ptr(),
+        cnt.data_ptr(), ba.data_ptr(), ab.data_ptr(), INF, n, size, T, seg,
+        kernels.stream_ptr(dev))
     kernels.check_launch(err, "edt_sweep")
     kernels.launches["edt_sweep"] += 1
-    return _finish(ab, ba, cnt, t_end)
+    return ab, ba, cnt
 
 
 def _sparse_ab_sums(pts, cand_idx, cnt, size):

@@ -44,8 +44,7 @@ KERNELS = {
         "pcc_bucket_colsums_d2": [_P] * 10 + [_I, _I, _I, _I, _P],
     }),
     "edt_sweep": ("edt_sweep.cu", {
-        "pcc_edt_sweep": [_P] * 10 + [_I, _I, _I, _P],
-        "pcc_edt_sweep_group": [],
+        "pcc_edt_sweep": [_P] * 18 + [ctypes.c_float] + [_I] * 4 + [_P],
     }),
     # both include csrc/fused_tail.cuh (the shared window body)
     "fused_tail": ("fused_tail.cu", {

@@ -41,7 +41,7 @@ sys.path.insert(0, str(REPO))
 FAMILIES = (("K1 bucket_colsums", ("bucket_colsums",)),
             ("K2 halo_edt", ("halo_zpass", "halo_plane")),
             ("K3 bucket_colsums_d2", ("bucket_d2",)),
-            ("K5 edt_sweep", ("sweep_zpass", "sweep_plane")),
+            ("K5 edt_sweep", ("edt_sweep",)),
             ("K4a fused_tail", ("tail_kernel",)),
             ("K4b fused_tail_slab", ("tail_slab_kernel",)),
             ("convolution", ("conv", "cudnn", "sm90_xmma", "implicit",
