@@ -28,8 +28,14 @@ exit):
    on the first chunk at K = 32768 and on the overflowing blocks at
    K = B³: colsum / candmin equal K1's and the plain version's, candplane
    equal, colplane within ``npts · 2^-20 + 1e-6 · |value|`` (the kernel
-   sums plane² in 2^-20 fixed point), two launches bit-identical, equal
-   picks for ``("d1_mse", "d2_mse")``.
+   sums plane² in 2^-20 fixed point), the columns past cnt0 equal, two
+   launches bit-identical, equal picks for ``("d1_mse", "d2_mse")``, the
+   CUDA launches of one call counted under ``torch.profiler`` (3). The
+   edges on seeded random inputs (``check_k3_edges``): blocks without
+   points or candidates, cnt0 of 512, 37 and K, ragged K / P, a padding
+   row inside a point count, normals at ``MAX_NORMAL``, one point on four
+   rows across warps and CTAs with tied candidates across tiles; two
+   launches bit-identical, N = 1 equal to its row of the batch.
 5. K5 (exact-EDT sweep sums) against its plain version on the first
    chunk: ab, ba, cnt equal for every threshold — with the point lists
    (sparse tail outside the kernel, the main path's call) and without
@@ -86,10 +92,10 @@ Prints a ``kernels`` JSON line (per kernel: launches on its path, max
 error against the plain version, its median time (K1, K3, K4 and K5 per
 call in bursts of four calls, so that the wrapper's host time overlaps
 the kernels), the plain time, the least time the card could take for the
-same work and the share of it reached (K1 at the chunk and the rerun, K4,
-K5)
-and, for K4, the cuDNN chain's time and ms / library), the card line, and
-last ``{"ok": true, "device": {...}}``.
+same work and the share of it reached (K1 and K3 at the chunk and the
+rerun, K4, K5), the CUDA launches of one call (K3, K5) and, for K4, the
+cuDNN chain's time and ms / library), the card line, and last
+``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 """
 
@@ -133,6 +139,9 @@ PEAK_BF16_OPS_S = 989e12  # dense bf16 on the tensor cores
 K1_F32_OPS_PER_PAIR = 9
 K1_INT32_OPS_PER_PAIR = 9
 K3_F32_OPS_PER_PLANE = 6
+# K3: prep, sweep and scan kernels, one C entry
+K3_CUDA_LAUNCHES = 3
+K3_OUTPUTS = ("colsum", "candmin", "colplane", "candplane")
 # K5, int32 operations the function needs. cnt and ba of every threshold
 # come from one pass over the voxels (find the voxel's threshold bin, add 1
 # and dt_orig into it: 3 operations per voxel) and a cumulative sum over
@@ -342,6 +351,20 @@ def check_k2(occ, mask, origins):
                 bound_ms=bound_ms, bound_by=by)
 
 
+def cuda_launches(call, family):
+    """CUDA kernels one call launches whose names hold ``family``, counted
+    by torch.profiler (K3's names hold ``bucket_d2``, K5's ``edt_sweep``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if family in e.key and "cudaLaunch" not in e.key)
+
+
 def check_k3(codec, pts, nrm, x_hat, K, reps=10, plain_reps=2):
     """Phase 4: K3 vs its plain version and vs K1 on the blocks of
     ``x_hat`` at candidate budget ``K``."""
@@ -366,6 +389,9 @@ def check_k3(codec, pts, nrm, x_hat, K, reps=10, plain_reps=2):
         assert torch.equal(a[valid], c[valid]), f"K3 {name} != K1"
     err_cand = float((got[3] - ref[3])[valid].abs().max())
     assert err_cand == 0, f"K3 candplane differs from plain ({err_cand})"
+    for name, a, b in zip(K3_OUTPUTS, got, ref):  # 0 / BIG / 0 / 0
+        assert torch.equal(a[~valid], b[~valid]), \
+            f"K3 {name} past cnt0 differs from plain"
     diff = (got[2].double() - ref[2].double()).abs()
     tol = npts[:, None].double() * 2.0 ** -20 + 1e-6 * ref[2].double().abs()
     err_col = float(diff[valid].max())
@@ -377,33 +403,120 @@ def check_k3(codec, pts, nrm, x_hat, K, reps=10, plain_reps=2):
     pp, op = bsw.select_thresholds_d1_bucket(
         xh, pts, colsums_d2_fn=bsw.bucket_colsums_d2_plain, **sel)
     assert torch.equal(pk, pp) and torch.equal(ok, op), "K3 picks differ"
-    ms = time_ms(lambda: bsw.bucket_colsums_d2(*args), reps=reps, burst=4)
+    call = lambda: bsw.bucket_colsums_d2(*args)
+    n_launches = cuda_launches(call, "bucket_d2")
+    assert n_launches == K3_CUDA_LAUNCHES, n_launches
+    ms = time_ms(call, reps=reps, burst=4)
     plain_ms = time_ms(lambda: bsw.bucket_colsums_d2_plain(*args),
                        reps=plain_reps)
-    shape = pos.shape
-    fill_ms = time_ms(lambda: (
-        torch.zeros(shape, dtype=torch.int64, device=pos.device),
-        torch.zeros(shape, dtype=torch.int64, device=pos.device),
-        torch.full(shape, -1, dtype=torch.int32, device=pos.device),
-        torch.full(shape, 0, dtype=torch.int32, device=pos.device),
-        torch.zeros(shape, dtype=torch.float32, device=pos.device)),
-        reps=reps)
     pairs = int((npts.to(torch.int64) * cnt0c.to(torch.int64)).sum())
     planes = int(cnt0c.sum()) + int(npts.sum())
     # points, normals, candidates and counts in; four [N, K] columns out
-    # (colsum 8 bytes, the others 4)
+    # (colsum and candmin 8 bytes, colplane and candplane 4)
     nbytes = (pts.numel() + nrm.numel() + pos.numel() + 2 * len(npts)) * 4 \
-        + pos.numel() * 20
+        + pos.numel() * 24
     bound_ms, by = bound(nbytes, 0, K1_F32_OPS_PER_PAIR * pairs
                          + K3_F32_OPS_PER_PLANE * planes)
     log(f"K3 ok at K = {K}: {len(npts)} blocks, {pairs} point-candidate "
         f"pairs, d1 outputs equal K1's, candplane err 0, colplane max err "
         f"{err_col:.3g} (values up to {float(ref[2][valid].max()):.4g}), "
-        f"two launches bit-identical, {ms:.3f} ms of which output fills "
-        f"{fill_ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.3f} "
-        f"ms by {by})")
+        f"columns past cnt0 equal, two launches bit-identical, "
+        f"{n_launches} CUDA launches a call; {ms:.3f} ms (plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms by {by}: "
+        f"{100 * bound_ms / ms:.1f}% reached)")
     return dict(max_abs_err=err_col, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, fill_ms=fill_ms)
+                bound_ms=bound_ms, bound_by=by, bound_share=bound_ms / ms,
+                cuda_launches_a_call=n_launches)
+
+
+def k3_edge_batch(n, P, K, seed):
+    """Seeded K3 inputs at B = 64 with the edges in the first rows: (pts,
+    nrm, pos, cnt0, npts) as CUDA tensors. cnt0 of rows 0-3 is K, 512, 37
+    and K, row 4 has no points, row 5 no candidates; row 0 holds one point
+    four times (rows 3, 35, 131, 700: other warps and CTAs, other
+    normals) and, for it, candidates at d² 1 in three candidate tiles
+    (k = 100, 700, 1300; plane² 1, 1, 0 with normal +x); row 1 has normal
+    components ±MAX_NORMAL, row 2 normals of length MAX_NORMAL, row 6 a
+    padding row inside its point count; the rest are unit normals."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.ops import bucket_sweep as bsw
+
+    rng = np.random.default_rng(seed)
+    npts = rng.integers(1, P + 1, n)
+    cnt0 = rng.integers(1, K + 1, n)
+    cnt0[:4] = (K, 512, 37, K)
+    npts[0], npts[4], cnt0[5] = P, 0, 0
+    pts = np.full((n, P, 3), -1, np.int32)
+    nrm = rng.normal(size=(n, P, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    for i, m in enumerate(npts):
+        pts[i, :m] = rng.integers(0, BLOCK, (m, 3))
+    nrm[1] = rng.choice([-1.0, 1.0], (P, 3)) * bsw.MAX_NORMAL
+    nrm[2] *= bsw.MAX_NORMAL
+    pts[6, min(10, npts[6] - 1)] = -1
+    pos = np.stack([rng.permutation(BLOCK ** 3)[:K] for _ in range(n)])
+    p0 = np.array([30, 30, 30])
+    near = np.abs(pts[0] - p0).max(-1) <= 2  # no other point near p0
+    pts[0, near, 0] = rng.integers(40, BLOCK, int(near.sum()))
+    pts[0, [3, 35, 131, 700]] = p0
+    nrm[0, [3, 35, 131, 700]] = ((1, 0, 0), (0, 1, 0), (0, 0, 1),
+                                 (0.6, 0.8, 0))
+    flat = lambda c: (c[0] * BLOCK + c[1]) * BLOCK + c[2]
+    for k, off in ((100, (1, 0, 0)), (700, (-1, 0, 0)), (1300, (0, 1, 0))):
+        q = flat(p0 + off)
+        j = np.nonzero(pos[0] == q)[0]  # keep the positions distinct
+        if len(j):
+            pos[0, j[0]] = pos[0, k]
+        pos[0, k] = q
+    return [torch.as_tensor(a, device="cuda") for a in (
+        pts, nrm.astype(np.float32), pos.astype(np.int32),
+        cnt0.astype(np.int32), npts.astype(np.int32))]
+
+
+def check_k3_edges():
+    """Phase 4, the edges on seeded random inputs (``k3_edge_batch``): K3
+    equal to its plain version in every column (colsum, candmin, candplane
+    bit for bit, colplane within ``npts · 2^-20 + 1e-6 · |value|``, as
+    ``check_k3``), two launches bit-identical, N = 1 equal to its row of
+    the batch, K and P not multiples of 32 or of a CTA's points."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.ops import bucket_sweep as bsw
+
+    n, P, K = 32, 1000, 4003
+    args = k3_edge_batch(n, P, K, 8)
+    got = bsw.bucket_colsums_d2(*args, BLOCK)
+    again = bsw.bucket_colsums_d2(*args, BLOCK)
+    ref = bsw.bucket_colsums_d2_plain(*args, BLOCK)
+    ones = {i: bsw.bucket_colsums_d2(*(a[i:i + 1] for a in args), BLOCK)
+            for i in (0, 4, 5, 7)}
+    torch.cuda.synchronize()
+    for i in (0, 1, 3):
+        err = float((got[i].double() - ref[i].double()).abs().max())
+        assert err == 0, f"K3 edges: {K3_OUTPUTS[i]} differs ({err})"
+    npts = args[4]
+    err = (got[2].double() - ref[2].double()).abs()
+    tol = npts[:, None].double() * 2.0 ** -20 + 1e-6 * ref[2].double().abs()
+    assert bool((err <= tol).all()), \
+        f"K3 edges: colplane beyond its tolerance ({float(err.max())})"
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "K3: two launches differ"
+    for i, res in ones.items():
+        assert all(torch.equal(a[0], b[i]) for a, b in zip(res, got)), \
+            f"K3: N = 1 differs from row {i} of the batch"
+    # the lowest of the four tied rows (normal +x) names candplane at
+    # k = 100 (the earliest tied candidate's rule is held by colplane's
+    # equality with the plain version); blocks without points
+    assert float(got[3][0, 100]) == 1.0 and int(got[1][0, 100]) == 1
+    assert (got[1][4, :int(args[3][4])] == bsw.BIG).all()
+    assert (got[3][4, :int(args[3][4])] == float(bsw.BIG)).all()
+    log(f"K3 edges ok (B = {BLOCK}, N = {n}, P = {P}, K = {K}; npts 0, "
+        f"cnt0 0, 512, 37 and K, |n| components up to {bsw.MAX_NORMAL}, "
+        f"one point on four rows across warps and CTAs, tied candidates "
+        f"across tiles): equal to plain (colplane max err "
+        f"{float(err.max()):.3g}), two launches bit-identical, N = 1 equal "
+        f"to its row")
 
 
 def sweep_kernel_ms(codec, pts, nrm, x_hat, K):
@@ -417,20 +530,6 @@ def sweep_kernel_ms(codec, pts, nrm, x_hat, K):
                     reps=3, burst=4),
             time_ms(lambda: bsw.bucket_colsums_d2(pts, nrm, pos, cnt0c, npts,
                                                   BLOCK), reps=3, burst=4))
-
-
-def k5_cuda_launches(call):
-    """CUDA kernels one K5 call launches, counted by torch.profiler (every
-    K5 kernel's name holds ``edt_sweep``)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if "edt_sweep" in e.key and "cudaLaunch" not in e.key)
 
 
 def check_k5(codec, pts, x_hat):
@@ -467,8 +566,8 @@ def check_k5(codec, pts, x_hat):
     bucket = codec._sweep(x_hat, pts, occ, ("d1_mse",), (np.inf,))
     assert torch.equal(picks, bucket), "K5 picks differ from the bucket's"
     call = lambda: es.edt_sweep_sums(xh, occ, dt, thr, t_end)
-    cuda_launches = k5_cuda_launches(call)
-    assert 0 < cuda_launches <= 3, cuda_launches
+    n_launches = cuda_launches(call, "edt_sweep")
+    assert 0 < n_launches <= 3, n_launches
     ms = time_ms(call, reps=5, burst=4)
     plain_ms = time_ms(lambda: es.d1_sweep_sums_plain(xh, occ, dt, thr,
                                                       t_end), reps=1,
@@ -491,7 +590,7 @@ def check_k5(codec, pts, x_hat):
         f"{int(t_end.min())}..{int(t_end.max())} ({edts} (block, threshold) "
         f"EDTs, {int((occ > 0).sum())} occupied voxels), ab/ba/cnt equal "
         f"the plain version's for every t (with and without the sparse "
-        f"split), picks equal the bucket backend's; {cuda_launches} CUDA "
+        f"split), picks equal the bucket backend's; {n_launches} CUDA "
         f"launches a call (the wrapper counts 1); {ms:.3f} ms (plain "
         f"{plain_ms:.3f} ms; plain with an EDT for every t "
         f"{plain_full_s * 1e3:.0f} ms; bound {bound_ms:.3f} ms by {by}: "
@@ -501,7 +600,7 @@ def check_k5(codec, pts, x_hat):
         f"{bound_cols_ms:.3f} ms)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, bound_share=bound_ms / ms,
-                cuda_launches_a_call=cuda_launches)
+                cuda_launches_a_call=n_launches)
 
 
 def k5_edge_batch(size, n, T, seed):
@@ -571,8 +670,9 @@ def check_k5_edges():
         assert (ab[1][cnt[1] > 0] == 0).all() and (ba[1] > 0).any()
         assert (ab[2] >= 1e12).all() and (cnt[3, :-1] == 1).all()
         assert (ab[3, :-1] > 3 * (size // 2 - 1) ** 2).all()
-        launches[T] = k5_cuda_launches(
-            lambda: es.edt_sweep_sums(x_hat, occ, dt, thr, t_end))
+        launches[T] = cuda_launches(
+            lambda: es.edt_sweep_sums(x_hat, occ, dt, thr, t_end),
+            "edt_sweep")
     assert len(set(launches.values())) == 1 and launches[32] <= 3, launches
     log(f"K5 edges ok (B = 64, N = 8, T = 32; B = 90, N = 4, T = 16: no "
         f"candidates, no points, t_end = 0, one far candidate, all "
@@ -910,6 +1010,7 @@ def run(device):
             k1 = check_k1(codec, pts, res["x_hat"], codec.bucket_k)
             check_k1_edges()
             k3 = check_k3(codec, pts, nrm, res["x_hat"], codec.bucket_k)
+            check_k3_edges()
             k5 = check_k5(codec, pts, res["x_hat"])
             check_k5_edges()
         # the rows the codec re-sweeps at K = B³

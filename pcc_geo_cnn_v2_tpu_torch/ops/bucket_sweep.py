@@ -43,7 +43,7 @@ from pcc_geo_cnn_v2_tpu_torch.ops.threshold_sweep import (
 )
 
 __all__ = ["bucket_colsums", "bucket_colsums_plain", "bucket_plan",
-           "check_k1_limits", "bucket_colsums_d2",
+           "check_k1_limits", "check_k3_limits", "bucket_colsums_d2",
            "bucket_colsums_d2_plain", "check_normals", "sorted_candidates",
            "bucket_sweep_sums", "select_thresholds_d1_bucket"]
 
@@ -52,9 +52,10 @@ _CHUNK_ELEMS = 1 << 24  # point × candidate tile of the plain version
 # K3 packs (d², point row) into one 32-bit key and sums plane² in 64-bit
 # fixed point: limits on d², the point budget and the normals' magnitude
 _ROW_BITS = 18
-_FIX = float(1 << 20)
 MAX_NORMAL = 32.0
-K1_THREADS = 128  # threads of a K1 sweep CTA (NT of csrc/bucket_colsums.cu)
+# threads of a K1 and a K3 sweep CTA (NT of csrc/bucket_colsums.cu and
+# csrc/bucket_colsums_d2.cu)
+K1_THREADS = 128
 
 
 def _cand_coords(pos, size):
@@ -92,8 +93,8 @@ def bucket_colsums_plain(pts, pos, cnt0, npts, size):
 
 
 def bucket_plan(n_blocks, n_points):
-    """Launch plan of K1 for ``n_blocks`` blocks of ``n_points`` point rows:
-    dict(threads, grid=(point tiles, n_blocks)).
+    """Launch plan of K1 and of K3 for ``n_blocks`` blocks of ``n_points``
+    point rows: dict(threads, grid=(point tiles, n_blocks)).
 
     Thread t of point tile i takes point row ``i · threads + t`` of its
     block and sweeps every candidate of it. The grid follows the batch's
@@ -216,9 +217,22 @@ def check_normals(nrm):
                          f"plane sums (|n| ≤ {MAX_NORMAL})")
 
 
+def check_k3_limits(n_points, size):
+    """Raise where K3's kernel would not be exact: its 32-bit (d², row)
+    keys need ``3 (size-1)² < 2^14`` and ``n_points ≤ 2^18``, its d² column
+    sums K1's 32-bit limit (:func:`check_k1_limits`). The plain version is
+    exact at any size."""
+    if (3 * (size - 1) ** 2 >= 1 << (32 - _ROW_BITS)
+            or n_points > 1 << _ROW_BITS):
+        raise ValueError(f"block size {size} / point budget {n_points} do "
+                         "not fit K3's 32-bit (d², row) key: not exact")
+    check_k1_limits(n_points, size)
+
+
 def bucket_colsums_d2(pts, nrm, pos, cnt0, npts, size):
     """K3: K1's outputs plus the point-to-plane column sums. CUDA tensors
-    launch ``csrc/bucket_colsums_d2.cu``; CPU tensors take
+    launch ``csrc/bucket_colsums_d2.cu`` under :func:`bucket_plan` (within
+    :func:`check_k3_limits`); CPU tensors take
     :func:`bucket_colsums_d2_plain`. Same outputs either way: colsum,
     candmin and candplane bit for bit, colplane within
     ``npts · 2^-21`` (the kernel sums plane² in 2^-20 fixed point, so its
@@ -234,25 +248,25 @@ def bucket_colsums_d2(pts, nrm, pos, cnt0, npts, size):
     kernels.check_cuda_tensor(pos, "pos", torch.int32)
     kernels.check_cuda_tensor(cnt0, "cnt0", torch.int32, (n_blocks,))
     kernels.check_cuda_tensor(npts, "npts", torch.int32, (n_blocks,))
-    if 3 * (size - 1) ** 2 >= 1 << (32 - _ROW_BITS) or P > 1 << _ROW_BITS:
-        raise ValueError(f"block size {size} / point budget {P} do not fit "
-                         "K3's 32-bit (d², row) key")
+    check_k3_limits(P, size)
+    plan = bucket_plan(n_blocks, P)
     lib = kernels.load("bucket_colsums_d2")
     dev = pos.device
-    colsum = torch.zeros(n_blocks, K, dtype=torch.int64, device=dev)
-    colplane = torch.zeros(n_blocks, K, dtype=torch.int64, device=dev)
-    key = torch.full((n_blocks, K), -1, dtype=torch.int32, device=dev)
-    candmin = torch.full((n_blocks, K), BIG, dtype=torch.int32, device=dev)
-    candplane = torch.zeros(n_blocks, K, dtype=torch.float32, device=dev)
+    colsum = torch.empty(n_blocks, K, dtype=torch.int64, device=dev)
+    candmin = torch.empty(n_blocks, K, dtype=torch.int64, device=dev)
+    colplane = torch.empty(n_blocks, K, dtype=torch.float32, device=dev)
+    candplane = torch.empty(n_blocks, K, dtype=torch.float32, device=dev)
+    work = torch.empty(lib.pcc_bucket_colsums_d2_work_ints(n_blocks, K),
+                       dtype=torch.int32, device=dev)
     err = lib.pcc_bucket_colsums_d2(
         pts.data_ptr(), nrm.data_ptr(), pos.data_ptr(), cnt0.data_ptr(),
-        npts.data_ptr(), colsum.data_ptr(), colplane.data_ptr(),
-        key.data_ptr(), candmin.data_ptr(), candplane.data_ptr(), n_blocks,
-        P, K, size, kernels.stream_ptr(dev))
+        npts.data_ptr(), colsum.data_ptr(), candmin.data_ptr(),
+        colplane.data_ptr(), candplane.data_ptr(), work.data_ptr(),
+        n_blocks, P, K, size, plan["threads"], plan["grid"][0],
+        kernels.stream_ptr(dev))
     kernels.check_launch(err, "bucket_colsums_d2")
     kernels.launches["bucket_colsums_d2"] += 1
-    return (colsum, candmin.to(torch.int64),
-            (colplane.to(torch.float64) / _FIX).to(torch.float32), candplane)
+    return colsum, candmin, colplane, candplane
 
 
 def sorted_candidates(x_hat, thresholds, K):

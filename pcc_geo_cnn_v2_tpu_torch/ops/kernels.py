@@ -41,7 +41,8 @@ KERNELS = {
                          _P],
     }),
     "bucket_colsums_d2": ("bucket_colsums_d2.cu", {
-        "pcc_bucket_colsums_d2": [_P] * 10 + [_I, _I, _I, _I, _P],
+        "pcc_bucket_colsums_d2": [_P] * 10 + [_I] * 6 + [_P],
+        "pcc_bucket_colsums_d2_work_ints": [_I, _I],
     }),
     "edt_sweep": ("edt_sweep.cu", {
         "pcc_edt_sweep": [_P] * 18 + [ctypes.c_float] + [_I] * 4 + [_P],
