@@ -21,9 +21,17 @@ exit):
    The edges on seeded random inputs (``check_k1_edges``): blocks without
    points or candidates, ragged cnt0 / K / P, two launches
    bit-identical, N = 1 equal to its row of the batch.
-3. K2 (bounded halo EDT + D1 sums) against its plain version: B = 64,
-   halo = 12, 64 blocks of halo volumes assembled from that cloud: sum, n,
-   unres_cnt and the packed outlier bytes equal.
+3. K2 (full-cloud D1 sums from packed neighbour grids) against its plain
+   version (the gather, halo-volume and coarse-bound chain, 64 blocks a
+   step) on the whole cloud, both directions: sum, n, unres_cnt and the
+   packed outlier bytes equal, two launches bit-identical, the CUDA
+   launches of one call counted under ``torch.profiler`` (2); timed a
+   cloud and on 64 blocks, its bound from the function's work, the count of
+   the separable passes beside it, and the device work of the
+   ``blockwise_d1_sums`` call around it. The edges on seeded clouds (``check_k2_edges``): d² = halo² counted
+   and 145 flagged across a block edge, a target in a corner neighbour,
+   blocks without target or query at the cloud's edge, a one-block cloud
+   and a one-row neighbour table equal to their rows.
 4. K3 (bucket sweep with point-to-plane terms) against its plain version
    on the first chunk at K = 32768 and on the overflowing blocks at
    K = B³: colsum / candmin equal K1's and the plain version's, candplane
@@ -89,11 +97,11 @@ exit):
 
 The launch counts are set to 0 just before each path and read just after.
 Prints a ``kernels`` JSON line (per kernel: launches on its path, max
-error against the plain version, its median time (K1, K3, K4 and K5 per
+error against the plain version, its median time (K1, K2, K3, K4 and K5 per
 call in bursts of four calls, so that the wrapper's host time overlaps
 the kernels), the plain time, the least time the card could take for the
 same work and the share of it reached (K1 and K3 at the chunk and the
-rerun, K4, K5), the CUDA launches of one call (K3, K5) and, for K4, the
+rerun, K2, K4, K5), the CUDA launches of one call (K2, K3, K5) and, for K4, the
 cuDNN chain's time and ms / library), the card line, and last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -159,6 +167,12 @@ K5_OPS_PER_VOXEL_ONCE = 3
 K5_OPS_PER_OCCUPIED_EDT = 1
 K5_OPS_PER_VOXEL_EDT_SETS = 1
 K5_OPS_PER_VOXEL_EDT_COLUMNS = 5
+# K2: two kernels behind one C entry (the searches, the partials' sums);
+# int32 operations the function needs: one a query voxel, and the disc
+# search (~pi D rows for a voxel whose result is D, capped at halo^2, 2
+# operations each), as K5's 2 pi AB
+K2_CUDA_LAUNCHES = 2
+K2_OPS_PER_QUERY = 1
 # Encoder-side D2 PSNR against the host KD-tree oracle. Both take true
 # nearest neighbours, but on an integer grid most neighbours at distance
 # > 0 are tied, the plane distance depends on which tied neighbour is
@@ -307,48 +321,195 @@ def check_k1_edges():
         f"bit-identical, N = 1 equal to its row")
 
 
+def k2_inputs(occ, mask, origins):
+    """K2's inputs for a cloud: both packed grids with a zero row last, and
+    the neighbour table (absent → that row), as ``blockwise_d1_sums``
+    makes them."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.ops import cloud_metrics as cm
+
+    n, dev = len(origins), occ.device
+    nb = cm.neighbor_table(origins, BLOCK)
+    zero = torch.zeros(1, occ.shape[1], dtype=torch.uint8, device=dev)
+    return (torch.cat([occ[:n], zero]), torch.cat([mask[:n], zero]),
+            torch.as_tensor(np.where(nb < 0, n, nb), dtype=torch.int32,
+                            device=dev))
+
+
+def device_work(call):
+    """(device operations, device ms) of one call under torch.profiler:
+    every kernel, copy and fill that took device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    us = lambda e: float(getattr(e, "self_device_time_total", 0.0)  # noqa
+                         or getattr(e, "self_cuda_time_total", 0.0))
+    evts = [e for e in prof.key_averages() if us(e) > 0]
+    return sum(e.count for e in evts), sum(us(e) for e in evts) / 1e3
+
+
+def passes_k2_ops(a_ext, b_ext, idx):
+    """The separable passes' count of K2's work, printed beside the bound,
+    as the earlier kernel over assembled volumes did it: per 64-block
+    batch and direction, 4 operations a halo voxel for the z scans and
+    4 kmax + 1 a core row voxel and a query voxel for the bounded y and x
+    passes, kmax from the coarse grid (``halo_kmax``)."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.ops import halo as hl
+
+    H, ops = BLOCK + 2 * HALO, 0
+    for lo in range(0, len(idx), HALO_BATCH):
+        ix = idx[lo:lo + HALO_BATCH].long()
+        for q_ext, t_ext in ((a_ext, b_ext), (b_ext, a_ext)):
+            qry = hl.query_core(q_ext[ix], BLOCK)
+            km = hl.halo_kmax(qry, hl.assemble_halo(t_ext[ix], BLOCK, HALO),
+                              HALO).to(torch.int64)
+            nq = (qry > 0).sum(dim=(1, 2, 3))
+            ops += 4 * len(ix) * H ** 3 + int(
+                ((BLOCK * BLOCK * H + nq) * (4 * km + 1)).sum())
+    return ops
+
+
 def check_k2(occ, mask, origins):
-    """Phase 3: K2 vs its plain version on one halo batch."""
+    """Phase 3: K2 vs its plain version on the whole cloud, both
+    directions."""
     import torch
 
     from pcc_geo_cnn_v2_tpu_torch.ops import cloud_metrics as cm
     from pcc_geo_cnn_v2_tpu_torch.ops import halo as hl
 
     n = len(origins)
-    nb = cm.neighbor_table(origins, BLOCK)
-    zero = torch.zeros(1, occ.shape[1], dtype=torch.uint8, device=occ.device)
-    idx = torch.as_tensor(np.where(nb < 0, n, nb), device=occ.device)
-    q_nb = torch.cat([occ[:n], zero])[idx]
-    t_nb = torch.cat([mask[:n], zero])[idx]
-    qry = cm.query_core(q_nb, BLOCK)
-    tgt = cm.assemble_halo(t_nb, BLOCK, HALO)
-    kmax = hl.halo_kmax(qry, tgt, HALO)
-    got = hl.halo_edt(qry, tgt, kmax, BLOCK, HALO)
-    ref = hl.halo_edt_plain(qry, tgt, kmax, BLOCK, HALO)
+    a_ext, b_ext, idx = k2_inputs(occ, mask, origins)
+    kw = dict(size=BLOCK, halo=HALO)
+    call = lambda: hl.halo_d1_packed(a_ext, b_ext, idx, **kw)  # noqa: E731
+    got, again = call(), call()
+    ref = hl.halo_d1_packed_plain(a_ext, b_ext, idx, batch=HALO_BATCH, **kw)
     torch.cuda.synchronize()
     err = max(int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
               for g, r in zip(got, ref))
     assert err == 0, f"K2 disagrees with its plain version (max err {err})"
-    ms = time_ms(lambda: hl.halo_edt(qry, tgt, kmax, BLOCK, HALO), reps=10)
-    plain_ms = time_ms(lambda: hl.halo_edt_plain(qry, tgt, kmax, BLOCK,
-                                                 HALO), reps=2)
-    H = BLOCK + 2 * HALO
-    km = kmax.to(torch.int64)
-    # z scans (2 passes of compare+select per voxel), y pass over core
-    # planes/rows (one min+add pair per shift), x pass at query voxels
-    ops = 4 * n * H ** 3 \
-        + int((BLOCK * BLOCK * H * (4 * km + 1)).sum()) \
-        + int((got[1].to(torch.int64) * (4 * km + 1)).sum())
-    # target halo volumes and query cores in; outlier bits and the
-    # per-block kmax, sum, n and unres_cnt
-    nbytes = tgt.numel() + qry.numel() + got[3].numel() + n * (4 + 8 + 4 + 4)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert all(torch.equal(g, a) for g, a in zip(got, again)), \
+        "K2: two launches differ"
+    n_launches = cuda_launches(call, "halo_edt")
+    assert n_launches == K2_CUDA_LAUNCHES, n_launches
+    ms = time_ms(call, reps=10, burst=4)
+    sub = idx[:HALO_BATCH].contiguous()
+    ms_64 = time_ms(lambda: hl.halo_d1_packed(a_ext, b_ext, sub, **kw),
+                    reps=10, burst=4)
+    plain_ms = time_ms(lambda: hl.halo_d1_packed_plain(
+        a_ext, b_ext, idx, batch=HALO_BATCH, **kw), reps=2)
+    st = got[0].cpu().numpy().astype(np.float64)  # [2, (sum, n, cnt), n]
+    queries, flagged = st[:, 1].sum(), st[:, 2].sum()
+    ops = K2_OPS_PER_QUERY * queries + 2 * np.pi * (
+        st[:, 0].sum() + HALO * HALO * flagged)
+    # both packed grids read once, both directions' masks written, the
+    # per-block scalars, the neighbour table
+    nbytes = 4 * n * BLOCK ** 3 // 8 + 2 * 3 * n * 8 + idx.numel() * 4
     bound_ms, by = bound(nbytes, ops)
-    log(f"K2 ok: {n} blocks, kmax {int(kmax.min())}..{int(kmax.max())}, "
-        f"{int(got[1].sum())} queries, {int(got[2].sum())} outliers, "
-        f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms by "
-        f"{by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by)
+    passes_bound_ms = bound(nbytes, passes_k2_ops(a_ext, b_ext, idx))[0]
+    d1_ops, d1_ms = device_work(lambda: cm.blockwise_d1_sums(
+        occ, mask, origins, BLOCK, halo=HALO, batch=HALO_BATCH))
+    log(f"K2 ok: {n} blocks, both directions, {int(queries)} queries, "
+        f"{int(flagged)} outliers: stats and masks equal the plain "
+        f"version's, two launches bit-identical, {n_launches} CUDA launches "
+        f"a call; {ms:.3f} ms a cloud, {ms_64:.3f} ms for {len(sub)} blocks "
+        f"(plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {by}: "
+        f"{100 * bound_ms / ms:.1f}% reached; the separable passes' bound "
+        f"{passes_bound_ms:.3f} ms); the D1-sums call: {d1_ops} device "
+        f"operations, {d1_ms:.3f} ms of device time")
+    return dict(max_abs_err=err, ms=ms, ms_per_64_blocks=ms_64,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                bound_share=bound_ms / ms, cuda_launches_a_call=n_launches,
+                passes_bound_ms=passes_bound_ms, d1_sums_device_ops=d1_ops,
+                d1_sums_device_ms=d1_ms)
+
+
+def k2_edge_cloud():
+    """Seeded clouds A and B at B = 64 with K2's edges: (origins, packed A,
+    packed B) as numpy arrays. Blocks 0-3 touch: A's (60, 30, 70) and
+    (60, 50, 70) in block 2 have B's (72, 30, 70) at d² 144 = halo² and
+    (72, 51, 70) at 145 across the edge to block 1; A's (63, 63, 63) in
+    block 0 has B's (66, 66, 66) at 27 in its corner neighbour, block 3.
+    Blocks 4 and 5 stand alone (no neighbours): block 4 holds A voxels and
+    no target, block 5 B voxels and no query. Blocks 6 and 7 touch each
+    other and hold random voxels of both clouds."""
+    rng = np.random.default_rng(9)
+    origins = np.array([(0, 0, 0), (64, 0, 64), (0, 0, 64), (64, 64, 64),
+                        (512, 0, 0), (0, 512, 0), (512, 512, 512),
+                        (512, 512, 576)])
+    grids = np.zeros((2, len(origins), BLOCK, BLOCK, BLOCK), bool)
+    for c, pts in enumerate((((60, 30, 70), (60, 50, 70), (63, 63, 63)),
+                             ((72, 30, 70), (72, 51, 70), (66, 66, 66)))):
+        for p in pts:
+            i = int(np.nonzero((origins == np.asarray(p) // BLOCK * BLOCK)
+                               .all(1))[0][0])
+            grids[(c, i, *(np.asarray(p) % BLOCK))] = True
+    grids[0, 4] = rng.random((BLOCK,) * 3) < 0.002
+    grids[1, 5] = rng.random((BLOCK,) * 3) < 0.002
+    grids[:, 6:] = rng.random((2, 2) + (BLOCK,) * 3) < [[[[[0.003]]]],
+                                                        [[[[0.0005]]]]]
+    packed = np.packbits(grids.reshape(2, len(origins), -1), axis=-1,
+                         bitorder="big")
+    return origins, packed[0], packed[1]
+
+
+def check_k2_edges():
+    """Phase 3, the edges (``k2_edge_cloud``): K2 equal to its plain
+    version, the d² = halo² boundary counted and 145 flagged, the corner
+    neighbour's target found, a block without target all flagged, a block
+    without query empty, two launches bit-identical, a one-block cloud (n
+    = 1) and a one-row neighbour table equal to their rows of the whole
+    call, and K2's CUDA launches a call."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.ops import halo as hl
+
+    origins, a, b = k2_edge_cloud()
+    kw = dict(size=BLOCK, halo=HALO)
+    dev = torch.device("cuda")
+    a_ext, b_ext, idx = k2_inputs(torch.as_tensor(a, device=dev),
+                                  torch.as_tensor(b, device=dev), origins)
+    got = hl.halo_d1_packed(a_ext, b_ext, idx, **kw)
+    again = hl.halo_d1_packed(a_ext, b_ext, idx, **kw)
+    ref = hl.halo_d1_packed_plain(a_ext, b_ext, idx, **kw)
+    row6 = hl.halo_d1_packed(a_ext, b_ext, idx[6:7].contiguous(), **kw)
+    one = k2_inputs(torch.as_tensor(a[4:5], device=dev),
+                    torch.as_tensor(b[4:5], device=dev), origins[4:5])
+    got1 = hl.halo_d1_packed(*one, **kw)
+    ref1 = hl.halo_d1_packed_plain(*one, **kw)
+    torch.cuda.synchronize()
+    for g, r in ((got, ref), (again, got), (got1, ref1)):
+        assert all(torch.equal(x, y) for x, y in zip(g, r)), \
+            "K2 edges: differs from plain or between launches"
+    assert torch.equal(row6[0][..., 0], got[0][..., 6]) and \
+        torch.equal(row6[1][:, 0], got[1][:, 6]), "K2: one row differs"
+    assert torch.equal(got1[0][..., 0], got[0][..., 4]) and \
+        torch.equal(got1[1][:, 0], got[1][:, 4]), "K2: n = 1 differs"
+    st = got[0].cpu().numpy()  # [direction, (sum, n, unres_cnt), block]
+    assert tuple(st[0, :, 2]) == (144, 2, 1), st[0, :, 2]
+    assert tuple(st[1, :, 1]) == (144, 2, 1), st[1, :, 1]
+    assert tuple(st[0, :, 0]) == (27, 1, 0) and tuple(st[1, :, 3]) == \
+        (27, 1, 0), (st[0, :, 0], st[1, :, 3])
+    assert st[0, 1, 4] > 0 and st[0, 2, 4] == st[0, 1, 4] and st[0, 0, 4] == 0
+    assert st[1, 1, 5] > 0 and st[1, 2, 5] == st[1, 1, 5]
+    assert (st[0, :, 5] == 0).all() and (st[1, :, 4] == 0).all()
+    n_launches = cuda_launches(lambda: hl.halo_d1_packed(a_ext, b_ext, idx,
+                                                         **kw), "halo_edt")
+    assert n_launches == K2_CUDA_LAUNCHES, n_launches
+    log(f"K2 edges ok (B = {BLOCK}, halo {HALO}, {len(origins)} blocks: d² "
+        f"144 counted and 145 flagged across a block edge, the corner "
+        f"neighbour's target at 27, no target (all {int(st[0, 1, 4])} "
+        f"flagged), no query, cloud edges; random blocks with "
+        f"{int(st[:, 2, 6:].sum())} outliers): equal to plain, two launches "
+        f"bit-identical, n = 1 and a one-row table equal to their rows, "
+        f"{n_launches} CUDA launches a call")
 
 
 def cuda_launches(call, family):
@@ -994,9 +1155,8 @@ def run(device):
         pts = codec.chunk_points(flat_dev, offsets, lo, hi, budget)
         nrm = codec.chunk_normals(nrm_dev, offsets, lo, hi, budget)
         res = codec.encode_chunk(pts, hi - lo)
-        if lo < HALO_BATCH:
-            occ.append(res["occ"])
-            mask.append(res["masks"][0])
+        occ.append(res["occ"][:hi - lo])
+        mask.append(res["masks"][0][:hi - lo])
         # the fused-conv backend's symbols on the same chunk
         if lo == 0:
             tails, res_c = record_tail_inputs(codec_c, pts, hi - lo)
@@ -1044,8 +1204,9 @@ def run(device):
             f"launches at K = B³ {reruns:.3f} ms: the reruns are "
             f"{100 * reruns / (chunks + reruns):.1f}% of the kernel's time")
     origins = np.stack(block_origins(binstr, [0, 0, 0], [RESOLUTION] * 3,
-                                     LEVEL))[:HALO_BATCH]
+                                     LEVEL))
     k2 = check_k2(torch.cat(occ), torch.cat(mask), origins)
+    check_k2_edges()
 
     def container(payload):
         # mtime fixed: equal payloads must give equal bytes

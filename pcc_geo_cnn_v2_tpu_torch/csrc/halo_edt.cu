@@ -1,187 +1,349 @@
-// K2: bounded halo EDT with the encoder-side full-cloud D1 partial sums.
+// K2: full-cloud D1 partial sums from packed neighbour grids.
 //
 // Replaces the Pallas TPU kernel `_halo_kernel`
 // (pcc_geo_cnn_v2_tpu/ops/pallas_halo.py:43, launched by
-// `halo_d1_dir_pallas`). Per block b of a batch: the squared Euclidean
-// distance transform of the target occupancy over the block's
-// 27-neighbourhood halo volume (H = size + 2 halo per axis), evaluated at
-// the block's query voxels (a size^3 core grid), then
+// `halo_d1_dir_pallas`), with the volume assembly around it
+// (`_halo_dir_chunk_pallas`, pcc_geo_cnn_v2_tpu/ops/cloud_metrics.py:148).
+// For every block i of a cloud and both directions d (0: queries are cloud
+// A's voxels, targets cloud B's; 1: the reverse), with the query block's
+// voxels v and the target voxels of its 27-neighbourhood:
 //
-//   sum[b]       = sum of dt over core query voxels with dt <= halo^2
-//   n[b]         = number of core query voxels
-//   unres_cnt[b] = number of core query voxels with dt > halo^2
-//   unres[b]     = those voxels as packed bits (big bit order, core flat)
+//   sum[d, i]       = sum of D(v) over the query voxels with D(v) <= halo^2
+//   n[d, i]         = number of query voxels
+//   unres_cnt[d, i] = number of query voxels with D(v) > halo^2
+//   unres[d, i]     = those voxels as packed bits (big bit order, core flat)
 //
-// Every pass is bounded by the per-block shift bound kmax[b] (coarse-grid
-// bound, computed by the wrapper): distances <= halo are then exact and
-// larger ones can only be overestimated, i.e. flagged — the semantics of
-// the TPU kernel, whose sums/counts/masks this kernel reproduces exactly.
+// D(v) = squared distance from v to its nearest target voxel. A ball of
+// radius halo around a voxel of the block lies inside the 27-neighbourhood
+// (halo <= size), so D <= halo^2 is exact; beyond it the voxel is flagged.
+// This is the TPU kernel's function. Its coarse-grid bound `kmax` and its
+// separable passes over an assembled [H, H, H] halo volume are cost controls
+// that never change a value; this kernel carries over the function, not
+// them.
 //
-// Design (a first, simple, exact kernel): a 88^3 halo volume does not fit
-// a CTA's shared memory, so the separable EDT is split in two launches.
-//  1. z pass: one thread per (b, y, x) column scans the target column
-//     forward and backward and stores, for the `size` core z planes only,
-//     the 1-D distance to the nearest target (255 = none within kmax) as
-//     uint8 into a [bs, size, H, H] scratch the wrapper allocates.
-//  2. plane pass: one CTA per (core z plane, block) stages the plane's
-//     column distances in shared memory, runs the y min-plus pass over
-//     the core rows into shared memory, then the x min-plus pass only at
-//     the plane's core query voxels, and reduces sum / n / unres_cnt with
-//     warp reductions and one atomic per warp; each thread writes whole
-//     bytes of the packed outlier mask.
-// Integer arithmetic throughout (d2 <= 3 halo^2, INF = 2^24): exact sums.
+// Inputs are the packed grids [rows, size^3 / 8] of both clouds (voxel
+// (x, y, z) of a block is bit 7 - z % 8 of byte ((x size + y) size + z) / 8)
+// and the neighbour table idx [n, 27] ((dx, dy, dz) row-major, the block
+// itself at 13; an index outside [0, rows) is an absent neighbour).
 //
-// Bound: the target halo volume and the query core are read once
-// (~60 MB of int8 at bs = 64, H = 88, size = 64); the min-plus work is
-// ~bs * size^2 * H * (2 kmax + 1) integer min/add pairs for the y pass plus
-// the sparse x pass. Whether bytes or operations bound it depends on kmax.
+// Design: two launches a call, nothing assembled in global memory.
+//  1. halo_edt_kernel, one CTA of THREADS threads per (block, slab of SLAB
+//     core x-planes, direction). A CTA whose query slab is empty writes its
+//     zero mask rows and partials and stops. Else it builds the target's
+//     bit rows in shared memory: row (x, y), for x in [x0 - halo,
+//     x0 + SLAB + halo) and y in [-halo, size + halo), holds the bits z in
+//     [-halo, size + halo) as one 128-bit word (bit z + halo), put together
+//     from the (dx, dy) neighbour column's three z-neighbours: a byte's
+//     bits reversed (`__brevll` and `__byte_perm`) turn a little-endian
+//     64-bit load of a packed row into a word with voxel z at bit z, and
+//     shifts place the dz = -1 / 0 / +1 parts. 40 x 88 rows x 16 B = 55 KB
+//     at size 64, halo 12, plus 10.4 KB of round arrays: 2 CTAs of 512
+//     threads an SM (64 registers). The queries go THREADS rows a round:
+//     each thread loads one row of the query block, a block scan numbers
+//     the round's voxels and thread j takes voxels j, j + THREADS, ... (a
+//     thread a row held a warp as long as its fullest row: a surface along
+//     z fills rows). A voxel walks the spiral table of (|dx|, |dy|) in
+//     increasing dx^2 + dy^2 (ops/halo.py `halo_spiral_table`), takes each
+//     row's nearest set bit by a shift and `__ffsll` / `__clzll`, and stops
+//     at the first entry whose dx^2 + dy^2 is not below its best value,
+//     which starts at halo^2 + 1: exact without any external bound. A slab
+//     without any target bit flags its queries without a search. Flags go
+//     into the round's rows by shared 32-bit `atomicOr` and are written as
+//     whole mask rows in the packed byte order; sum, n and unres_cnt go
+//     through warp reductions into one partial per CTA (no global atomics).
+//  2. halo_edt_finish_kernel, a thread per (direction, block), adds the
+//     slabs' partials.
+// Integer arithmetic throughout: the sums are exact whatever the order.
+//
+// Bound (per call): both clouds' packed grids read once, the masks written
+// once, the per-block scalars; operations, one per query voxel and the disc
+// search (~pi D rows for a voxel whose result is D, capped at halo^2, 2
+// operations each: 2 pi sum D). The CTAs reread the slab halo (2.5x at
+// SLAB 16) from L2, where a cloud's packed grids (6.7 MB for 205 blocks of
+// 64^3) stay.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int NONE = 255;        // no target within kmax along the column
-constexpr int INF_I = 1 << 24;   // squared distance of NONE
-constexpr int ZPASS_THREADS = 256;
-constexpr int PLANE_THREADS = 256;
+typedef unsigned long long u64;
+typedef unsigned __int128 u128;
 
-__device__ __forceinline__ int sq(int d) { return d == NONE ? INF_I : d * d; }
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr int SLAB = 16;             // core x-planes a CTA
+constexpr int MAX_SIZE = 64;         // a block row is one 64-bit word
+constexpr int ROW_BITS = 128;        // a halo row: size + 2 halo bits
+constexpr int FINISH_THREADS = 256;
+constexpr int FAR = 1 << 10;         // no set bit along a row
 
-__global__ void halo_zpass_kernel(const uint8_t* __restrict__ tgt,
-                                  const int32_t* __restrict__ kmax,
-                                  uint8_t* __restrict__ dz,
-                                  int bs, int H, int size, int halo) {
-    const int64_t plane = (int64_t)H * H;
-    const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (col >= bs * plane) return;
-    const int b = (int)(col / plane);
-    const int64_t yx = col % plane;
-    const uint8_t* t = tgt + (int64_t)b * H * plane + yx;
-    uint8_t* out = dz + (int64_t)b * size * plane + yx;
-    const int km = kmax[b];
-    int last = -(1 << 20);
-    for (int z = 0; z < halo + size; ++z) {
-        if (t[z * plane]) last = z;
-        if (z >= halo) {
-            const int d = z - last;
-            out[(z - halo) * plane] = (uint8_t)(d <= km ? d : NONE);
-        }
+// bit 7 - b of byte k -> bit 8 k + b: a little-endian load of a packed row
+// becomes a word with voxel z at bit z (an involution)
+__device__ __forceinline__ u64 zorder(u64 w) {
+    const u64 r = __brevll(w);
+    const unsigned lo = (unsigned)r, hi = (unsigned)(r >> 32);
+    return ((u64)__byte_perm(lo, 0, 0x0123) << 32) | __byte_perm(hi, 0, 0x0123);
+}
+
+__device__ __forceinline__ u64 load_row(const uint8_t* __restrict__ p,
+                                        int rb) {
+    if (rb == 8) return __ldg(reinterpret_cast<const u64*>(p));
+    u64 w = 0;
+    for (int k = 0; k < rb; ++k) w |= (u64)__ldg(p + k) << (8 * k);
+    return w;
+}
+
+__device__ __forceinline__ void store_row(uint8_t* __restrict__ p, int rb,
+                                          u64 w) {
+    if (rb == 8) {
+        *reinterpret_cast<u64*>(p) = w;
+        return;
     }
-    int next = 1 << 20;
-    for (int z = H - 1; z >= halo; --z) {
-        if (t[z * plane]) next = z;
-        if (z < halo + size) {
-            const int d = next - z;
-            uint8_t* o = out + (z - halo) * plane;
-            if (d <= km && d < *o) *o = (uint8_t)d;
+    for (int k = 0; k < rb; ++k) p[k] = (uint8_t)(w >> (8 * k));
+}
+
+// |dz| to the set bit of `row` nearest to bit pz (FAR if the row is empty)
+__device__ __forceinline__ int nearest_dz(u128 row, int pz) {
+    const u128 up = row >> pz;
+    const u64 ul = (u64)up, uh = (u64)(up >> 64);
+    const int du = ul ? __ffsll((long long)ul) - 1
+                      : (uh ? 63 + __ffsll((long long)uh) : FAR);
+    const u128 dn = row << (127 - pz);
+    const u64 dl = (u64)dn, dh = (u64)(dn >> 64);
+    const int dd = dh ? __clzll((long long)dh)
+                      : (dl ? 64 + __clzll((long long)dl) : FAR);
+    return min(du, dd);
+}
+
+// squared distance from bit pz of row c0[0] to the nearest set bit of the
+// rows c0[+-dx H +- dy], searched in spiral order and stopped at the first
+// entry not below the best value; cap + 1 if none is within cap
+__device__ __forceinline__ int search(const u128* __restrict__ c0, int H,
+                                      int pz,
+                                      const int32_t* __restrict__ spiral,
+                                      int n_spiral, int cap) {
+    int best = cap + 1;
+    for (int e = 0; e < n_spiral; ++e) {
+        const int pe = __ldg(spiral + e);
+        const int r2 = pe >> 14;
+        if (r2 >= best) break;
+        const int ex = (pe >> 7) & 127, ey = pe & 127;
+        for (int sx = 0; sx < (ex ? 2 : 1); ++sx)
+            for (int sy = 0; sy < (ey ? 2 : 1); ++sy) {
+                const u128 row = c0[(sx ? -ex : ex) * H + (sy ? -ey : ey)];
+                if (row) {
+                    const int dz = nearest_dz(row, pz);
+                    best = min(best, r2 + dz * dz);
+                }
+            }
+    }
+    return best;
+}
+
+__global__ void __launch_bounds__(THREADS)
+halo_edt_kernel(const uint8_t* __restrict__ a_ext,
+                const uint8_t* __restrict__ b_ext, int rows_ext,
+                const int32_t* __restrict__ idx,
+                const int32_t* __restrict__ spiral, int n_spiral,
+                int64_t* __restrict__ part, uint8_t* __restrict__ unres,
+                int n, int size, int halo, int slabs) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    u128* tgt = reinterpret_cast<u128*>(smem);  // [SLAB + 2 halo][H]
+    __shared__ int nb[27];
+    __shared__ u64 qbits[THREADS];       // a round's query rows
+    __shared__ int qoff[THREADS];        // their first voxel's number
+    __shared__ unsigned qflag[THREADS][2];  // their outlier bits
+    __shared__ int wsum[WARPS];
+    __shared__ u64 red_s[WARPS];
+    __shared__ int red_n[WARPS], red_c[WARPS];
+    const int s = blockIdx.x % slabs, i = blockIdx.x / slabs, d = blockIdx.y;
+    const uint8_t* qsrc = d ? b_ext : a_ext;
+    const uint8_t* tsrc = d ? a_ext : b_ext;
+    const int rb = size >> 3;  // bytes a packed row
+    const int64_t blk = (int64_t)size * size * rb;
+    const int x0 = s * SLAB, xs = min(SLAB, size - x0);
+    const int H = size + 2 * halo;
+    if (threadIdx.x < 27) {
+        const int k = idx[(int64_t)i * 27 + threadIdx.x];
+        nb[threadIdx.x] = (k >= 0 && k < rows_ext) ? k : -1;
+    }
+    __syncthreads();
+    const int qb = nb[13];
+    const uint8_t* q = qsrc + (int64_t)max(qb, 0) * blk;
+    uint8_t* u = unres + ((int64_t)d * n + i) * blk;
+    const int qrows = xs * size;
+    const int64_t q0 = (int64_t)x0 * size * rb;  // the slab's first row
+    bool any = false;
+    if (qb >= 0)
+        for (int r = threadIdx.x; r < qrows; r += THREADS)
+            any |= load_row(q + q0 + (int64_t)r * rb, rb) != 0;
+    u64 sum = 0;
+    int nq = 0, nu = 0;
+    if (__syncthreads_or(any)) {
+        // the target's bit rows of the slab and its halo
+        bool t_any = false;
+        const int X = xs + 2 * halo;
+        const u64 low = (1ull << halo) - 1;
+        for (int t = threadIdx.x; t < X * H; t += THREADS) {
+            const int xx = t / H, yy = t - xx * H;
+            const int x = x0 - halo + xx, y = yy - halo;
+            const int cx = x < 0 ? 0 : (x < size ? 1 : 2);
+            const int cy = y < 0 ? 0 : (y < size ? 1 : 2);
+            const int64_t off =
+                ((int64_t)(x - (cx - 1) * size) * size + (y - (cy - 1) * size))
+                * rb;
+            const int* col = nb + cx * 9 + cy * 3;
+            u64 w[3];
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+                w[k] = col[k] >= 0
+                    ? load_row(tsrc + (int64_t)col[k] * blk + off, rb) : 0;
+            const u128 row = ((u128)zorder(w[1]) << halo)
+                | (u128)(zorder(w[0]) >> (size - halo))
+                | ((u128)(zorder(w[2]) & low) << (size + halo));
+            tgt[t] = row;
+            t_any |= row != 0;
         }
+        const bool t_live = __syncthreads_or(t_any);
+        // the queries, THREADS rows a round: each thread loads one row, a
+        // block scan numbers the round's voxels, and thread j takes voxels
+        // j, j + THREADS, ... (a row's voxels go to neighbouring lanes)
+        const int cap = halo * halo, lane = threadIdx.x & 31;
+        for (int r0 = 0; r0 < qrows; r0 += THREADS) {
+            const int r = r0 + threadIdx.x;
+            const u64 bits = r < qrows
+                ? zorder(load_row(q + q0 + (int64_t)r * rb, rb)) : 0;
+            const int c = __popcll(bits);
+            int incl = c;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int v = __shfl_up_sync(FULL, incl, o);
+                if (lane >= o) incl += v;
+            }
+            if (lane == 31) wsum[threadIdx.x >> 5] = incl;
+            qbits[threadIdx.x] = bits;
+            qflag[threadIdx.x][0] = qflag[threadIdx.x][1] = 0;
+            nq += c;
+            __syncthreads();
+            int base = 0, total = 0;
+#pragma unroll
+            for (int w = 0; w < WARPS; ++w) {
+                base += w < (threadIdx.x >> 5) ? wsum[w] : 0;
+                total += wsum[w];
+            }
+            qoff[threadIdx.x] = base + incl - c;
+            __syncthreads();
+            for (int j = threadIdx.x; j < total; j += THREADS) {
+                // the row: the last k with qoff[k] <= j (it holds voxels)
+                int lo = 0, hi = THREADS - 1;
+                while (lo < hi) {
+                    const int mid = (lo + hi + 1) >> 1;
+                    if (qoff[mid] <= j) lo = mid;
+                    else hi = mid - 1;
+                }
+                const u64 w = qbits[lo];
+                const int m = j - qoff[lo], pl = __popc((unsigned)w);
+                const int z = m < pl
+                    ? (int)__fns((unsigned)w, 0, m + 1)
+                    : 32 + (int)__fns((unsigned)(w >> 32), 0, m - pl + 1);
+                const int rr = r0 + lo, xr = rr / size, y = rr - xr * size;
+                const int best = t_live
+                    ? search(tgt + (xr + halo) * H + (y + halo), H, z + halo,
+                             spiral, n_spiral, cap)
+                    : cap + 1;
+                if (best <= cap) {
+                    sum += (u64)best;
+                } else {
+                    ++nu;
+                    atomicOr(&qflag[lo][z >> 5], 1u << (z & 31));
+                }
+            }
+            __syncthreads();
+            if (r < qrows)
+                store_row(u + q0 + (int64_t)r * rb, rb,
+                          zorder(((u64)qflag[threadIdx.x][1] << 32) |
+                                 qflag[threadIdx.x][0]));
+            __syncthreads();  // the next round rewrites the arrays
+        }
+    } else {
+        for (int r = threadIdx.x; r < qrows; r += THREADS)
+            store_row(u + q0 + (int64_t)r * rb, rb, 0);
+    }
+    for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
+    nq = __reduce_add_sync(FULL, nq);
+    nu = __reduce_add_sync(FULL, nu);
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+        red_s[warp] = sum;
+        red_n[warp] = nq;
+        red_c[warp] = nu;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        u64 ts = 0;
+        int64_t tn = 0, tc = 0;
+        for (int w = 0; w < WARPS; ++w) {
+            ts += red_s[w];
+            tn += red_n[w];
+            tc += red_c[w];
+        }
+        int64_t* o = part + (((int64_t)d * n + i) * slabs + s) * 3;
+        o[0] = (int64_t)ts;
+        o[1] = tn;
+        o[2] = tc;
     }
 }
 
-__global__ void __launch_bounds__(PLANE_THREADS)
-halo_plane_kernel(const uint8_t* __restrict__ dz,
-                  const uint8_t* __restrict__ qry,
-                  const int32_t* __restrict__ kmax,
-                  unsigned long long* __restrict__ sum,
-                  int32_t* __restrict__ n_out,
-                  int32_t* __restrict__ unres_cnt,
-                  uint8_t* __restrict__ unres,
-                  int H, int size, int halo) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    const int zc = blockIdx.x, b = blockIdx.y;
-    const int HH = H * H;
-    uint8_t* d = smem;                                       // [H][H]
-    int* gy = reinterpret_cast<int*>(smem + ((HH + 15) & ~15));  // [size][H]
-    const int km = kmax[b];
-    const uint8_t* src = dz + ((int64_t)b * size + zc) * HH;
-    for (int i = threadIdx.x; i < HH; i += PLANE_THREADS) d[i] = src[i];
-    __syncthreads();
-
-    // y pass over the core rows, all columns
-    for (int i = threadIdx.x; i < size * H; i += PLANE_THREADS) {
-        const int y = i / H + halo, x = i % H;
-        int best = sq(d[y * H + x]);
-        for (int k = 1; k <= km; ++k) {
-            const int k2 = k * k;
-            if (y + k < H) best = min(best, sq(d[(y + k) * H + x]) + k2);
-            if (y - k >= 0) best = min(best, sq(d[(y - k) * H + x]) + k2);
-        }
-        gy[i] = best;
-    }
-    __syncthreads();
-
-    // x pass at core query voxels; one packed output byte per item
-    const int cap = halo * halo;
-    const int row_bytes = size / 8;
-    const uint8_t* qplane = qry + ((int64_t)b * size + zc) * size * size;
-    uint8_t* ub = unres + (int64_t)b * size * size * row_bytes
-                  + (int64_t)zc * size * row_bytes;
-    unsigned long long s = 0;
-    int cn = 0, cu = 0;
-    for (int i = threadIdx.x; i < size * row_bytes; i += PLANE_THREADS) {
-        const int yc = i / row_bytes, j = i % row_bytes;
-        const uint8_t* qrow = qplane + yc * size + 8 * j;
-        const int* row = gy + yc * H;
-        uint8_t bits = 0;
-        for (int u = 0; u < 8; ++u) {
-            if (!qrow[u]) continue;
-            const int x = halo + 8 * j + u;
-            int best = row[x];
-            for (int k = 1; k <= km; ++k) {
-                const int k2 = k * k;
-                if (x + k < H) best = min(best, row[x + k] + k2);
-                if (x - k >= 0) best = min(best, row[x - k] + k2);
-            }
-            ++cn;
-            if (best <= cap) {
-                s += (unsigned long long)best;
-            } else {
-                ++cu;
-                bits |= (uint8_t)(0x80u >> u);
-            }
-        }
-        ub[i] = bits;
-    }
-    // warp reductions, one atomic per warp and output
-    for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    cn = __reduce_add_sync(0xffffffffu, cn);
-    cu = __reduce_add_sync(0xffffffffu, cu);
-    if ((threadIdx.x & 31) == 0) {
-        if (s) atomicAdd(sum + b, s);
-        if (cn) atomicAdd(n_out + b, cn);
-        if (cu) atomicAdd(unres_cnt + b, cu);
-    }
+__global__ void __launch_bounds__(FINISH_THREADS)
+halo_edt_finish_kernel(const int64_t* __restrict__ part,
+                       int64_t* __restrict__ stats, int n, int slabs) {
+    const int t = blockIdx.x * FINISH_THREADS + threadIdx.x;
+    if (t >= 2 * n) return;
+    const int d = t / n, i = t - d * n;
+    const int64_t* p = part + (int64_t)t * slabs * 3;
+    int64_t v[3] = {0, 0, 0};
+    for (int s = 0; s < slabs; ++s)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) v[k] += p[s * 3 + k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) stats[((int64_t)d * 3 + k) * n + i] = v[k];
 }
 
 }  // namespace
 
 extern "C" {
 
-// qry [bs, size, size, size] / tgt [bs, H, H, H] uint8 occupancy;
-// kmax [bs] int32 (<= halo);
-// scratch [bs, size, H, H] uint8; sum [bs] int64, n/unres_cnt [bs] int32
-// (all three zeroed by the caller); unres [bs, size^3 / 8] uint8.
-// Returns cudaGetLastError.
-int pcc_halo_edt(const uint8_t* qry, const uint8_t* tgt, const int32_t* kmax,
-                 uint8_t* scratch, int64_t* sum, int32_t* n_out,
-                 int32_t* unres_cnt, uint8_t* unres, int bs, int H, int size,
-                 int halo, void* stream) {
-    if (bs <= 0) return (int)cudaGetLastError();
+// a_ext / b_ext [rows, size^3 / 8] uint8 packed grids (16-byte aligned);
+// idx [n, 27] int32 neighbour table; spiral [n_spiral] int32
+// (ops/halo.py halo_spiral_table(halo)). Scratch: part [2, n, slabs, 3]
+// int64, slabs = ceil(size / 16) (written before it is read). Out: stats
+// [2, 3, n] int64 (sum, n, unres_cnt per direction), unres [2, n,
+// size^3 / 8] uint8. Needs size a multiple of 8, size <= 64,
+// 1 <= halo <= size, size + 2 halo <= 128. Returns cudaGetLastError (or
+// the first failing call's error).
+int pcc_halo_edt(const uint8_t* a_ext, const uint8_t* b_ext, int rows_ext,
+                 const int32_t* idx, const int32_t* spiral, int n_spiral,
+                 int64_t* part, int64_t* stats, uint8_t* unres, int n,
+                 int size, int halo, void* stream) {
+    if (n <= 0) return (int)cudaGetLastError();
+    if (size <= 0 || size > MAX_SIZE || size % 8 || halo < 1 || halo > size
+        || size + 2 * halo > ROW_BITS)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    const int64_t cols = (int64_t)bs * H * H;
-    halo_zpass_kernel<<<(unsigned)((cols + ZPASS_THREADS - 1) / ZPASS_THREADS),
-                        ZPASS_THREADS, 0, st>>>(tgt, kmax, scratch, bs, H,
-                                                size, halo);
-    const size_t smem = ((H * H + 15) & ~15) + (size_t)size * H * sizeof(int);
-    if (smem > 48 * 1024) {
-        cudaFuncSetAttribute(halo_plane_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    }
-    halo_plane_kernel<<<dim3(size, bs), PLANE_THREADS, smem, st>>>(
-        scratch, qry, kmax, reinterpret_cast<unsigned long long*>(sum),
-        n_out, unres_cnt, unres, H, size, halo);
+    const int slabs = (size + SLAB - 1) / SLAB;
+    const size_t smem = (size_t)(min(SLAB, size) + 2 * halo) *
+                        (size + 2 * halo) * sizeof(u128);
+    cudaError_t e = cudaFuncSetAttribute(
+        halo_edt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    halo_edt_kernel<<<dim3(n * slabs, 2), THREADS, smem, st>>>(
+        a_ext, b_ext, rows_ext, idx, spiral, n_spiral, part, unres, n, size,
+        halo, slabs);
+    halo_edt_finish_kernel<<<(2 * n + FINISH_THREADS - 1) / FINISH_THREADS,
+                             FINISH_THREADS, 0, st>>>(part, stats, n, slabs);
     return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,8 @@ lies within ``halo`` voxels of the query's block — captured exactly by an
 EDT over the block's 27-neighbourhood halo volume — or the query is an
 outlier, resolved on the host with a KD-tree (:func:`resolve_outliers`).
 
-D1 needs distances only: kernel K2 (``ops/halo.py``). D2 needs the
+D1 needs distances only: kernel K2 (``ops/halo.py``), from the packed grids
+and the neighbour table, with nothing assembled on the card. D2 needs the
 neighbours' identities: a banded argmin EDT in plain torch
 (:func:`blockwise_nn_offsets`, plain XLA in the JAX package too), then the
 vote-mean normal transfer and the projections on the host in f64
@@ -19,8 +20,12 @@ import numpy as np
 import torch
 
 from pcc_geo_cnn_v2_tpu_torch.ops.edt import banded_squared_edt_argmin
-from pcc_geo_cnn_v2_tpu_torch.ops.halo import halo_d1_dir
-from pcc_geo_cnn_v2_tpu_torch.ops.voxel import packbits, unpackbits, voxelize
+from pcc_geo_cnn_v2_tpu_torch.ops.halo import (
+    assemble_halo,
+    halo_d1_packed,
+    query_core,
+)
+from pcc_geo_cnn_v2_tpu_torch.ops.voxel import packbits, voxelize
 from pcc_geo_cnn_v2_tpu_torch.utils.metrics import metric_dict
 
 __all__ = ["neighbor_table", "assemble_halo", "query_core",
@@ -50,44 +55,6 @@ def neighbor_table(origins, block_size):
     return nb
 
 
-def assemble_halo(p_nb, size, halo):
-    """Packed ``[bs, 27, B³/8]`` neighbour grids → ``[bs, H, H, H]`` uint8
-    halo volumes, H = B + 2·halo; only the bytes each neighbour contributes
-    are unpacked."""
-    bs = p_nb.shape[0]
-    B, H = size, size + 2 * halo
-    pv = p_nb.reshape(bs, 27, B, B, B // 8)
-    vol = torch.zeros(bs, H, H, H, dtype=torch.uint8, device=p_nb.device)
-
-    def rng(d):
-        # source voxel window in the neighbour / dest window in the halo
-        if d < 0:
-            return (B - halo, B), (0, halo)
-        if d > 0:
-            return (0, halo), (B + halo, H)
-        return (0, B), (halo, B + halo)
-
-    j = 0
-    for dx in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            for dz in (-1, 0, 1):
-                (sx0, sx1), (tx0, tx1) = rng(dx)
-                (sy0, sy1), (ty0, ty1) = rng(dy)
-                (sz0, sz1), (tz0, tz1) = rng(dz)
-                zb0 = sz0 // 8  # byte-aligned z cut, trimmed after unpack
-                sub = pv[:, j, sx0:sx1, sy0:sy1, zb0:(sz1 + 7) // 8]
-                bits = unpackbits(sub)
-                vol[:, tx0:tx1, ty0:ty1, tz0:tz1] = \
-                    bits[..., sz0 - zb0 * 8: sz1 - zb0 * 8]
-                j += 1
-    return vol
-
-
-def query_core(p_nb, size):
-    """``[bs, size, size, size]`` uint8 query grids of the centre blocks."""
-    return unpackbits(p_nb[:, 13]).view(p_nb.shape[0], size, size, size)
-
-
 def blockwise_d1_sums(a_packed, b_packed, origins, size, halo=12, batch=64):
     """Exact full-cloud directional D1 sums between clouds A and B.
 
@@ -95,6 +62,7 @@ def blockwise_d1_sums(a_packed, b_packed, origins, size, halo=12, batch=64):
         device; rows past ``len(origins)`` are ignored).
     :param b_packed: same for cloud B.
     :param origins: [N, 3] block origins (shared partition).
+    :param batch: blocks a step of K2's plain version (CPU tensors).
     :return: dict(ab_sum, ba_sum, n_a, n_b, outliers_a, outliers_b) —
         ``outliers_*`` are global coordinates whose NN exceeds the halo.
     """
@@ -104,37 +72,22 @@ def blockwise_d1_sums(a_packed, b_packed, origins, size, halo=12, batch=64):
     zero = torch.zeros(1, a_packed.shape[1], dtype=torch.uint8, device=dev)
     a_ext = torch.cat([a_packed[:n], zero])
     b_ext = torch.cat([b_packed[:n], zero])
-    idx_all = torch.as_tensor(np.where(nb < 0, n, nb), dtype=torch.int64,
-                              device=dev)
-    totals = {"ab_sum": 0, "ba_sum": 0, "n_a": 0, "n_b": 0}
-    unres = {"ab": [], "ba": []}
-    for lo in range(0, n, batch):
-        idx = idx_all[lo:lo + batch]
-        if len(idx) < batch:  # fixed batch width: pad with empty blocks
-            idx = torch.cat([idx, torch.full((batch - len(idx), 27), n,
-                                             dtype=torch.int64, device=dev)])
-        a_nb, b_nb = a_ext[idx], b_ext[idx]
-        for tag, q_nb, t_nb in (("ab", a_nb, b_nb), ("ba", b_nb, a_nb)):
-            r = halo_d1_dir(query_core(q_nb, size),
-                            assemble_halo(t_nb, size, halo),
-                            size=size, halo=halo)
-            totals[f"{tag}_sum"] += int(r["sum"].sum())
-            totals["n_a" if tag == "ab" else "n_b"] += int(r["n"].sum())
-            flagged = torch.nonzero(r["unres_cnt"][:n - lo]).flatten()
-            if len(flagged):
-                unres[tag].append((lo + flagged.cpu().numpy(),
-                                   r["unres"][flagged].cpu().numpy()))
+    idx = torch.as_tensor(np.where(nb < 0, n, nb), dtype=torch.int32,
+                          device=dev)
+    stats, masks = halo_d1_packed(a_ext, b_ext, idx, size=size, halo=halo,
+                                  batch=batch)
+    st = stats.cpu().numpy()  # [direction, (sum, n, unres_cnt), block]
+    out = {"ab_sum": float(st[0, 0].sum()), "ba_sum": float(st[1, 0].sum()),
+           "n_a": int(st[0, 1].sum()), "n_b": int(st[1, 1].sum())}
     origins = np.asarray(origins)
-    out = dict(totals)
-    for tag, key in (("ab", "outliers_a"), ("ba", "outliers_b")):
-        coords = []
-        for blk, rows in unres[tag]:
-            bits = np.unpackbits(rows, axis=-1, bitorder="big")
+    for d, key in enumerate(("outliers_a", "outliers_b")):
+        flagged = np.flatnonzero(st[d, 2])  # only their masks are fetched
+        out[key] = np.zeros((0, 3))
+        if len(flagged):
+            rows = masks[d][torch.as_tensor(flagged, device=dev)]
+            bits = np.unpackbits(rows.cpu().numpy(), axis=-1, bitorder="big")
             c = np.argwhere(bits.reshape(len(rows), size, size, size))
-            coords.append(c[:, 1:] + origins[blk[c[:, 0]]])
-        out[key] = np.concatenate(coords) if coords else np.zeros((0, 3))
-    out["ab_sum"] = float(out["ab_sum"])
-    out["ba_sum"] = float(out["ba_sum"])
+            out[key] = c[:, 1:] + origins[flagged[c[:, 0]]]
     return out
 
 

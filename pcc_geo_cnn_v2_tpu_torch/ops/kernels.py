@@ -37,7 +37,7 @@ KERNELS = {
         "pcc_bucket_colsums_work_ints": [_I, _I],
     }),
     "halo_edt": ("halo_edt.cu", {
-        "pcc_halo_edt": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        "pcc_halo_edt": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                          _P],
     }),
     "bucket_colsums_d2": ("bucket_colsums_d2.cu", {

@@ -39,7 +39,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 FAMILIES = (("K1 bucket_colsums", ("bucket_colsums",)),
-            ("K2 halo_edt", ("halo_zpass", "halo_plane")),
+            ("K2 halo_edt", ("halo_edt",)),
             ("K3 bucket_colsums_d2", ("bucket_d2",)),
             ("K5 edt_sweep", ("edt_sweep",)),
             ("K4a fused_tail", ("tail_kernel",)),
