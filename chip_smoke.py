@@ -94,8 +94,33 @@ exit):
 11. Path C in bf16 (``dtype=torch.bfloat16``): bit-exact decode, bpp
    within 5% and PSNR within 0.5 dB of path C in f32; the cuDNN backend in
    bf16 is run beside it for comparison.
+12. c2, then c1 (V1 transforms, 32 filters, the committed
+   ``assets/rd/{c2,c1}/2.00e-04.msgpack.gz``): the d1 path on the whole
+   cloud, bit-exact, encoder D1 PSNR equal to the host KD-tree's, K1 and
+   K2 launched, K4 not; bpp, PSNR and walls printed, and the device
+   milliseconds of the two k9 layers (analysis 1 → 32 at 64³ → 32³,
+   synthesis 32 → 1 at 32³ → 64³) on the first chunk beside its whole
+   decode.
+13. The host-threshold encoder (``compress_blocks``), c3p: with
+   ``fixed_threshold`` on the whole cloud (every index 128, bit-exact, no
+   kernel launched: its selection is host KD-trees); then the adaptive
+   host sweep on a cut, the first 16 blocks of the partition as their own
+   cloud (``cut_cloud``; the host sweep is CPU KD-tree work of seconds a
+   block), bit-exact, its picks beside the bucket backend's (K1) on the
+   same blocks: the share equal and, for every block that differs, the
+   two candidates' host d1_mse.
+14. d2 on the point sweep: ``sweep_backend="xla"`` with normals and
+   ``opt_metrics=("d1_mse", "d2_mse")`` on the cut (banded argmin EDTs,
+   band ``d2_band``): bit-exact, d1 picks equal K1's, d2 picks printed
+   beside K3's with the share equal (K3's AB takes each original's own
+   normal, the point sweep the vote mean); no sweep kernel launched, K2
+   for the d1 group; and the point sweep's d2 arrays bit-equal over two
+   runs on the cut's chunk (the normal votes are summed in fixed point).
+   Then ``n_thresholds=64`` on the cut through K1, K5 and K3 (with
+   normals): each launched, bit-exact, the d1 streams byte-equal.
 
 The launch counts are set to 0 just before each path and read just after.
+Phases 12-14 print their seconds.
 Prints a ``kernels`` JSON line (per kernel: launches on its path, max
 error against the plain version, its median time (K1, K2, K3, K4 and K5 per
 call in bursts of four calls, so that the wrapper's host time overlaps
@@ -182,6 +207,10 @@ K2_OPS_PER_QUERY = 1
 # rules sit further apart, so the sharp check is made point by point
 # (check_d2_identities) and this bound only frames the tie effect
 D2_PSNR_TOL_DB = 1.0
+# phase 12: the committed V1-family weights; phases 13-14: the cut
+RD_ASSETS = REPO / "pcc_geo_cnn_v2_tpu/assets/rd"
+V1_LAMBDA = "2.00e-04"
+CUT_BLOCKS = 16
 
 
 def log(msg):
@@ -1078,6 +1107,61 @@ def check_d2_identities(codec, blocks, binstr, points6, dec_blocks, decoded,
     return float((far & (d_ba[:, 0] == d_ba[:, 1])).sum() / max(far.sum(), 1))
 
 
+def cut_cloud(blocks, binstr, n):
+    """The first ``n`` blocks of a partition as a cloud of their own (global
+    coordinates, attribute columns kept), partitioned again: (points,
+    blocks, binstr); the blocks equal the first ``n``."""
+    from pcc_geo_cnn_v2_tpu_torch.utils.octree import (
+        block_origins,
+        partition_octree,
+    )
+
+    origins = block_origins(binstr, [0, 0, 0], [RESOLUTION] * 3, LEVEL)[:n]
+    pts = np.vstack([np.hstack([b[:, :3] + o, b[:, 3:]])
+                     for b, o in zip(blocks[:n], origins)])
+    cut_blocks, cut_binstr = partition_octree(pts, [0, 0, 0],
+                                              [RESOLUTION] * 3, LEVEL)
+    assert len(cut_blocks) == n and all(
+        np.array_equal(a, b) for a, b in zip(cut_blocks, blocks[:n]))
+    return pts, cut_blocks, cut_binstr
+
+
+def k9_layer_ms(codec, pts):
+    """Device ms of a V1-transform model's two k9 layers on one canonical
+    chunk, CUDA events under ``deterministic_convs``: (analysis Conv_0,
+    1 → F at 64³ → 32³; synthesis ConvTranspose_2, F → 1 at 32³ → 64³;
+    the chunk's whole decode)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pcc_geo_cnn_v2_tpu_torch.codec import deterministic_convs
+    from pcc_geo_cnn_v2_tpu_torch.ops.voxel import voxelize
+
+    m = codec.model
+    deterministic_convs()
+    with torch.no_grad():
+        x = voxelize(pts, BLOCK)
+        y_sym = m.encode_syms(x)["y_sym"]
+        prior = m.conditional if codec.is_v2 else m.entropy_bottleneck
+        syn = m.synthesis_t
+        h = prior.dequantize_symbols(y_sym).permute(0, 4, 1, 2, 3)
+        h = F.relu(syn.ConvTranspose_1(F.relu(syn.ConvTranspose_0(
+            h.contiguous()))))
+        xc = x.permute(0, 4, 1, 2, 3).contiguous()
+        return (time_ms(lambda: m.analysis_t.Conv_0(xc), 5),
+                time_ms(lambda: syn.ConvTranspose_2(h), 5),
+                time_ms(lambda: codec._decode_y(y_sym), 3))
+
+
+def host_d1_mse(block, x_hat, t):
+    """Host KD-tree d1_mse of one block's candidate ``x_hat > t`` (the
+    host sweep's own comparison)."""
+    from pcc_geo_cnn_v2_tpu_torch.utils.metrics import compute_metrics
+
+    cand = np.argwhere(x_hat > t).astype(np.float64)
+    return compute_metrics(block[:, :3], cand, RESOLUTION - 1)["d1_mse"]
+
+
 def main():
     import torch
 
@@ -1208,9 +1292,9 @@ def run(device):
     k2 = check_k2(torch.cat(occ), torch.cat(mask), origins)
     check_k2_edges()
 
-    def container(payload):
+    def container(payload, binstr_=binstr):
         # mtime fixed: equal payloads must give equal bytes
-        return gzip.compress(save_compressed_file(binstr, payload,
+        return gzip.compress(save_compressed_file(binstr_, payload,
                                                   RESOLUTION, LEVEL), mtime=0)
 
     def decode(dec_codec, blob):
@@ -1220,16 +1304,21 @@ def run(device):
         return np.vstack(departition_octree(dec, binstr2, [0, 0, 0],
                                             [res_] * 3, lvl_))
 
-    def drive(enc_codec, **kw):
-        """One counted path: encode → containers → decode of each; every
-        decode must equal the encoder's embedded reconstruction. The counts
-        after the encode half stay in ``drive.encode_counts``."""
+    def drive(enc_codec, method="compress_blocks_device_opt", cloud=None,
+              **kw):
+        """One counted path: encode (``method``, of the flagship cloud or of
+        ``cloud`` = (blocks, binstr, points)) → containers → decode of
+        each; every decode must equal the encoder's embedded
+        reconstruction. The counts after the encode half stay in
+        ``drive.encode_counts``, the picks in ``drive.picks`` (per group,
+        per block)."""
+        blocks_, binstr_, points_ = cloud or (blocks, binstr, points6)
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.time()
-        data_list, metadata = enc_codec.compress_blocks_device_opt(
-            blocks, binstr, points6, RESOLUTION, LEVEL, **kw)
-        blobs = [container(payload) for payload in data_list]
+        data_list, metadata = getattr(enc_codec, method)(
+            blocks_, binstr_, points_, RESOLUTION, LEVEL, **kw)
+        blobs = [container(payload, binstr_) for payload in data_list]
         torch.cuda.synchronize()
         t_enc = time.time() - t0
         drive.encode_counts = dict(kernels.launches)
@@ -1238,6 +1327,7 @@ def run(device):
         torch.cuda.synchronize()
         t_dec = time.time() - t0
         counts = dict(kernels.launches)
+        drive.picks = [[t for _, t in payload] for payload in data_list]
         for dec_full, meta in zip(decoded, metadata):
             enc_full = meta["blocks_full"]
             assert dec_full.shape == enc_full.shape and np.array_equal(
@@ -1389,8 +1479,151 @@ def run(device):
         f"{bpp_xb:.4f} bpp / {psnr_xb:.4f} dB; f32 path C {bpp_c:.4f} bpp / "
         f"{psnr_c:.4f} dB")
 
+    # phase 12: c2, then c1 — V1 transforms at full width, the d1 path
+    sweep_names = ("bucket_colsums", "halo_edt", "bucket_colsums_d2",
+                   "edt_sweep")
+    k4_names = tuple(k4_launches)
+    pts0 = codec.chunk_points(flat_dev, offsets, 0, BATCH, budget)
+    counts_v1 = {}
+    for cfg in ("c2", "c1"):
+        t_phase = time.time()
+        codec_v = BlockCodec(build_model(cfg), load_asset_tree(
+            RD_ASSETS / cfg / f"{V1_LAMBDA}.msgpack.gz"), block_size=BLOCK,
+            batch_blocks=BATCH, device=device)
+        assert codec_v.is_v2 == (cfg == "c2")
+        blobs, metadata, decoded, counts_v1[cfg], t_enc, t_dec = drive(
+            codec_v)
+        bpp_v = len(blobs[0]) * 8 / len(points)
+        psnr_v = metadata[0]["metrics"]["d1_psnr"]
+        host_v = host_d1_psnr(points, decoded[0], RESOLUTION - 1)
+        assert np.isfinite(psnr_v) and 0 < bpp_v < 8, (psnr_v, bpp_v)
+        assert abs(psnr_v - host_v) < 1e-6, (psnr_v, host_v)
+        expect_launches(cfg, counts_v1[cfg], ("bucket_colsums", "halo_edt"),
+                        ("bucket_colsums_d2", "edt_sweep") + k4_names)
+        ms_a, ms_s, ms_dec = k9_layer_ms(codec_v, pts0)
+        log(f"{cfg} ({'v2' if codec_v.is_v2 else 'v1'}, V1 transforms, "
+            f"{codec_v.model.num_filters} filters, rd/{cfg}/{V1_LAMBDA}): "
+            f"{len(blocks)} blocks, {len(decoded[0])} decoded points, "
+            f"bit-exact; {bpp_v:.4f} bpp, D1 PSNR {psnr_v:.4f} dB (host "
+            f"KD-tree {host_v:.4f}); encode {len(blocks) / t_enc:.2f} "
+            f"blocks/s ({t_enc:.2f} s), decode {len(blocks) / t_dec:.2f} "
+            f"blocks/s ({t_dec:.2f} s); launches {counts_v1[cfg]}")
+        log(f"{cfg} k9 layers on a {BATCH}-block chunk: analysis Conv_0 "
+            f"(1 -> 32, 64^3 -> 32^3) {ms_a:.3f} ms, synthesis "
+            f"ConvTranspose_2 (32 -> 1, 32^3 -> 64^3) {ms_s:.3f} ms; the "
+            f"chunk's whole decode {ms_dec:.3f} ms")
+        log(f"phase 12 ({cfg}): {time.time() - t_phase:.1f} s")
+        del codec_v
+
+    # phase 13: the host-threshold encoder, c3p
+    t_phase = time.time()
+    blobs, metadata, decoded, counts_hf, t_enc, t_dec = drive(
+        codec, method="compress_blocks", fixed_threshold=True)
+    mid = len(codec.thresholds) // 2
+    assert drive.picks == [[mid] * len(blocks)], "a fixed pick is not 128"
+    expect_launches("the fixed-threshold host path", counts_hf, (),
+                    sweep_names + k4_names)
+    log(f"host path, fixed_threshold (index {mid} everywhere): "
+        f"{len(blocks)} blocks, {len(decoded[0])} decoded points, "
+        f"bit-exact; {len(blobs[0]) * 8 / len(points):.4f} bpp, D1 PSNR "
+        f"{metadata[0]['metrics']['d1_psnr']:.4f} dB (host KD-tree); encode "
+        f"{len(blocks) / t_enc:.2f} blocks/s ({t_enc:.2f} s), decode "
+        f"{t_dec:.2f} s; launches {counts_hf}")
+    cut_pts, cut_blocks, cut_binstr = cut_cloud(blocks, binstr, CUT_BLOCKS)
+    cut = (cut_blocks, cut_binstr, cut_pts)
+    _, _, _, counts_hc, t_enc, t_dec = drive(codec, method="compress_blocks",
+                                             cloud=cut)
+    host_picks = drive.picks[0]
+    expect_launches("the adaptive host path", counts_hc, (),
+                    sweep_names + k4_names)
+    t_host = t_enc
+    drive(codec, cloud=cut)
+    k1_picks = drive.picks[0]
+    differ = [i for i in range(CUT_BLOCKS) if host_picks[i] != k1_picks[i]]
+    log(f"host path, adaptive sweep on the cut (the first {CUT_BLOCKS} "
+        f"blocks as their own cloud, {len(cut_pts)} points): bit-exact; "
+        f"encode {t_host:.2f} s ({t_host / CUT_BLOCKS:.2f} s a block), "
+        f"decode {t_dec:.2f} s; host picks equal to the bucket backend's "
+        f"(K1) on {CUT_BLOCKS - len(differ)} of {CUT_BLOCKS} blocks")
+    if differ:
+        flat_c, offsets_c = flatten_blocks(cut_blocks)
+        pts_c = codec.chunk_points(
+            torch.as_tensor(pack_coords(flat_c, BLOCK), device=device),
+            offsets_c, 0, CUT_BLOCKS, budget)
+        x_hat_c = codec.canonical_chunk(pts_c, CUT_BLOCKS)["x_hat"][
+            ..., 0].cpu().numpy()
+        for i in differ:
+            mse = [host_d1_mse(cut_blocks[i], x_hat_c[i],
+                               codec.thresholds[t])
+                   for t in (host_picks[i], k1_picks[i])]
+            log(f"  block {i}: host pick {host_picks[i]} (d1_mse "
+                f"{mse[0]!r}), K1 pick {k1_picks[i]} (d1_mse {mse[1]!r}): "
+                f"gap {mse[1] - mse[0]!r}")
+    log(f"phase 13: {time.time() - t_phase:.1f} s")
+
+    # phase 14: d2 on the point sweep (sweep_backend="xla"), on the cut
+    from pcc_geo_cnn_v2_tpu_torch.ops.threshold_sweep import d2_sweep_pts
+
+    t_phase = time.time()
+    d2_kw = dict(opt_metrics=("d1_mse", "d2_mse"), with_normals=True)
+    codec_x = BlockCodec(build_model("c3p"), params, block_size=BLOCK,
+                         batch_blocks=BATCH, device=device,
+                         sweep_backend="xla")
+    _, _, _, counts_pd, t_enc, t_dec = drive(codec_x, cloud=cut, **d2_kw)
+    pt_picks = drive.picks
+    expect_launches("the point sweep", counts_pd, ("halo_edt",),
+                    ("bucket_colsums", "bucket_colsums_d2", "edt_sweep"))
+    assert pt_picks[0] == k1_picks, (pt_picks[0], k1_picks)
+    drive(codec, cloud=cut, **d2_kw)
+    k3_picks = drive.picks
+    assert k3_picks[0] == k1_picks
+    same_d2 = sum(a == b for a, b in zip(pt_picks[1], k3_picks[1]))
+    # the point sweep twice on the cut's chunk: bit-equal arrays
+    flat_c, offsets_c = flatten_blocks(cut_blocks)
+    pts_c = codec.chunk_points(
+        torch.as_tensor(pack_coords(flat_c, BLOCK), device=device),
+        offsets_c, 0, CUT_BLOCKS, budget)
+    nrm_c = codec.chunk_normals(torch.as_tensor(flatten_blocks(
+        cut_blocks, cols=(3, 4, 5), dtype=np.float32)[0], device=device),
+        offsets_c, 0, CUT_BLOCKS, budget)
+    res_c = codec_x.canonical_chunk(pts_c, CUT_BLOCKS)
+    runs = [d2_sweep_pts(res_c["x"][..., 0], pts_c, nrm_c,
+                         res_c["x_hat"][..., 0], codec_x.thr_dev,
+                         band=codec_x.d2_band) for _ in range(2)]
+    for key in runs[0]:
+        assert torch.equal(runs[0][key], runs[1][key]), key
+    log(f"point sweep (sweep_backend='xla', normals, d1_mse + d2_mse, band "
+        f"{codec_x.d2_band}) on the cut: both streams bit-exact; encode "
+        f"{t_enc:.2f} s, decode of both {t_dec:.2f} s; d1 picks equal K1's "
+        f"on {CUT_BLOCKS} of {CUT_BLOCKS}; d2 picks equal K3's on "
+        f"{same_d2} of {CUT_BLOCKS} (K3's AB takes each original's own "
+        f"normal, the point sweep the vote mean); d2 arrays bit-equal over "
+        f"two runs; launches {counts_pd}")
+    log(f"  d2 picks, point sweep: {pt_picks[1]}")
+    log(f"  d2 picks, K3:          {k3_picks[1]}")
+    # another threshold grid (n_thresholds = 64) through K1, K5 and K3
+    t64 = {}
+    for name, kernel, backend, kw in (
+            ("K1", "bucket_colsums", "bucket", {}),
+            ("K5", "edt_sweep", "pallas", {}),
+            ("K3", "bucket_colsums_d2", "bucket", d2_kw)):
+        c64 = BlockCodec(build_model("c3p"), params, block_size=BLOCK,
+                         batch_blocks=BATCH, device=device, n_thresholds=64,
+                         sweep_backend=backend)
+        blobs, _, _, counts, _, _ = drive(c64, cloud=cut, **kw)
+        expect_launches(f"{name} at T = 64", counts,
+                        (kernel, "halo_edt"), ())
+        t64[name] = (blobs[0], drive.picks[0])
+    assert t64["K1"] == t64["K5"] == t64["K3"], "d1 streams differ at T = 64"
+    assert max(t64["K1"][1]) < 64
+    log(f"n_thresholds = 64 on the cut: K1, K5 and K3 launched, d1 streams "
+        f"byte-equal, bit-exact; picks {t64['K1'][1]}")
+    log(f"phase 14: {time.time() - t_phase:.1f} s")
+
     by_path = {"d1": counts_d1, "A": counts_a, "B": counts_b, "C": counts_c,
-               "C_bf16": counts_cb}
+               "C_bf16": counts_cb, "c2": counts_v1["c2"],
+               "c1": counts_v1["c1"], "host_fixed": counts_hf,
+               "host_cut": counts_hc, "point_d2_cut": counts_pd}
     for name, shapes in k4.items():
         # headline numbers: f32 at the stage with the most work
         top = max((r for r in shapes if r["dtype"] == "f32"),

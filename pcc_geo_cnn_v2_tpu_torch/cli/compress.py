@@ -1,10 +1,13 @@
 """Encode point clouds: octree partition + batched block compression.
 
-Same argv as ``pcc_geo_cnn_v2_tpu.cli.compress`` plus ``--device``:
-gzipped bitstreams per (input × opt-metric group), ``.enc.metric.json``
-sidecars, optional merged decode via ``--dec_files``. The port runs the
-device threshold sweep: d1 metrics, and with ``--input_normals`` d2
-metrics too; the host-threshold modes are not ported yet.
+Same argv as ``pcc_geo_cnn_v2_tpu.cli.compress`` (but ``--debug``, the
+encoder's symbol dump) plus ``--device``: gzipped bitstreams per (input ×
+opt-metric group), ``.enc.metric.json`` sidecars, optional merged decode
+via ``--dec_files``. The threshold sweep runs on the device (d1 metrics,
+and with ``--input_normals`` d2 metrics too) unless ``--threshold_mode
+host``, ``--fixed_threshold`` or an opt metric outside the device sweep's
+set sends the cloud to the host path (``BlockCodec.compress_blocks``:
+KD-tree metrics per block), the JAX CLI's rule.
 
     python -m pcc_geo_cnn_v2_tpu_torch.cli.compress --input_files in.ply \
         --output_files out.bin --checkpoint_dir \
@@ -16,6 +19,10 @@ opt metric, one output per metric:
 
     ... --input_files in.ply --input_normals in_normals.ply \
         --opt_metrics d1_mse d2_mse --output_files out_d1.bin out_d2.bin
+
+The middle threshold for every block, with no sweep:
+
+    ... --fixed_threshold
 """
 
 from __future__ import annotations
@@ -75,20 +82,27 @@ def main(argv=None):
     parser.add_argument("--max_deltas", nargs="+", default=[np.inf],
                         type=float)
     parser.add_argument("--fixed_threshold", action="store_true",
-                        help="Not ported yet.")
+                        help="Every block at the middle threshold (host "
+                             "path, no sweep).")
     parser.add_argument("--resolution", type=int, default=64)
     parser.add_argument("--octree_level", type=int, default=4)
     parser.add_argument("--batch_blocks", type=int, default=32)
     parser.add_argument("--threshold_mode", default="auto",
-                        choices=["auto", "device"],
-                        help="The port always sweeps on the device.")
+                        choices=["auto", "device", "host"],
+                        help="auto: the device sweep where it covers the "
+                             "opt metrics, else the host path.")
     args = parser.parse_args(argv)
 
-    if args.fixed_threshold:
-        parser.error("--fixed_threshold is not ported yet")
     with_normals = args.input_normals is not None
     validate_opt_metrics(args.opt_metrics, with_normals=with_normals)
-    assert all(m in D1_METRICS + D2_METRICS for m in args.opt_metrics)
+    use_device = (
+        args.threshold_mode != "host"
+        and not args.fixed_threshold
+        and all(m in D1_METRICS + D2_METRICS for m in args.opt_metrics)
+        and (with_normals or all(m in D1_METRICS for m in args.opt_metrics)))
+    if args.threshold_mode == "device" and not use_device:
+        parser.error("--threshold_mode device needs d1 / d2 opt metrics "
+                     "and no --fixed_threshold")
     files_mult = len(args.opt_metrics) if len(args.opt_metrics) > 1 else 1
     assert files_mult * len(args.input_files) == len(args.output_files)
     if args.dec_files:
@@ -107,11 +121,17 @@ def main(argv=None):
     for i, (infile, pts) in enumerate(zip(args.input_files, points)):
         blocks, binstr = partition_octree(
             pts, [0, 0, 0], [args.resolution] * 3, args.octree_level)
-        logger.info("%s: %d blocks", infile, len(blocks))
-        data_list, metadata = codec.compress_blocks_device_opt(
-            blocks, binstr, pts, args.resolution, args.octree_level,
-            opt_metrics=tuple(args.opt_metrics),
-            max_deltas=tuple(args.max_deltas), with_normals=with_normals)
+        logger.info("%s: %d blocks (device sweep: %s)", infile, len(blocks),
+                    use_device)
+        kw = dict(opt_metrics=tuple(args.opt_metrics),
+                  max_deltas=tuple(args.max_deltas), with_normals=with_normals)
+        if use_device:
+            data_list, metadata = codec.compress_blocks_device_opt(
+                blocks, binstr, pts, args.resolution, args.octree_level, **kw)
+        else:
+            data_list, metadata = codec.compress_blocks(
+                blocks, binstr, pts, args.resolution, args.octree_level,
+                fixed_threshold=args.fixed_threshold, **kw)
         assert len(data_list) == files_mult, (
             f"{len(data_list)} metric groups != {files_mult} output files")
         outs = [args.output_files[i * files_mult + j]

@@ -1,7 +1,9 @@
-"""Scale-hyperprior compression model, inference entry points.
+"""Compression models, inference entry points.
 
-Port of ``CompressionModelV2.encode_syms`` / ``decode_z`` / ``decode_y``
-(``pcc_geo_cnn_v2_tpu/models/codec_models.py:161-186``). Public tensors
+Port of ``CompressionModelV1.encode_syms`` / ``decode`` (factorized prior
+on y, ``pcc_geo_cnn_v2_tpu/models/codec_models.py:38-80``) and
+``CompressionModelV2.encode_syms`` / ``decode_z`` / ``decode_y``
+(scale hyperprior, ``:161-186``). Public tensors
 keep the JAX package's NDHWC layouts — x ``[N, B, B, B, 1]``, symbols
 ``[N, b, b, b, C]``, x_hat ``[N, B, B, B, 1]`` f32 — and are converted to
 NCDHW once per call. Convolutions run in f32; quantization is f32 too.
@@ -23,7 +25,7 @@ from pcc_geo_cnn_v2_tpu_torch.ops.fused_conv import (
     packed_tails,
 )
 
-__all__ = ["CompressionModelV2", "CONV_BACKENDS"]
+__all__ = ["CompressionModelV1", "CompressionModelV2", "CONV_BACKENDS"]
 
 CONV_BACKENDS = ("xla", "pallas")
 
@@ -34,6 +36,34 @@ def _to_ncdhw(x):
 
 def _to_ndhwc(x):
     return x.permute(0, 2, 3, 4, 1).contiguous()
+
+
+class CompressionModelV1(nn.Module):
+    """Autoencoder + learned factorized prior on y (no hyperprior). The
+    JAX package runs it without a conv backend choice: its V1 stacks have
+    no residual tails."""
+
+    def __init__(self, num_filters=32, analysis="AnalysisTransformV1",
+                 synthesis="SynthesisTransformV1", dtype=None):
+        super().__init__()
+        self.num_filters = num_filters
+        self.dtype = dtype
+        self.analysis_t = TRANSFORMS[analysis](num_filters, dtype=dtype)
+        self.synthesis_t = TRANSFORMS[synthesis](num_filters, dtype=dtype)
+        self.entropy_bottleneck = FactorizedPrior(num_filters)
+
+    @torch.no_grad()
+    def encode_syms(self, x):
+        """x [N,B,B,B,1] → dict(y_sym) int32, NDHWC."""
+        y = _to_ndhwc(self.analysis_t(_to_ncdhw(x))).float()
+        return {"y_sym": self.entropy_bottleneck.quantize_symbols(y)}
+
+    @torch.no_grad()
+    def decode(self, y_sym):
+        """y symbols → x_hat [N,B,B,B,1] f32 in [0, 1]."""
+        y_hat = self.entropy_bottleneck.dequantize_symbols(y_sym)
+        x_hat = _to_ndhwc(self.synthesis_t(_to_ncdhw(y_hat))).float()
+        return torch.clamp(x_hat, 0.0, 1.0)
 
 
 class CompressionModelV2(nn.Module):
@@ -63,7 +93,8 @@ class CompressionModelV2(nn.Module):
             default_scale_table(scales_min, scales_max, scales_levels))
 
     def _fused(self, t):
-        return self.conv_backend == "pallas" and isinstance(t, BlockStack)
+        return (self.conv_backend == "pallas" and isinstance(t, BlockStack)
+                and t.residual_mode == "add")
 
     def _stack(self, t, x):
         """Apply an analysis / synthesis stack to NDHWC ``x`` through the

@@ -1,7 +1,8 @@
 """Analysis/synthesis transform stacks as torch modules.
 
-Port of ``pcc_geo_cnn_v2_tpu/models/transforms.py`` (V2, ProgressiveV2
-and the hyper transforms, ``add`` residual mode). Modules run NCDHW
+Port of ``pcc_geo_cnn_v2_tpu/models/transforms.py``: V1 (k9/k5/k5
+stride-2 stacks), V2, ProgressiveV2 (``add`` and ``concat`` residual
+modes) and the hyper transforms. Modules run NCDHW
 inside; the codec model converts from and to the JAX package's NDHWC at
 its public methods. Submodule names are the flax auto-names
 (``AnalysisBlock_0``, ``Conv_1``, ``ConvTranspose_0``…) so weight import is
@@ -37,9 +38,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Conv", "ConvTranspose", "AnalysisBlock", "SynthesisBlock",
+__all__ = ["Conv", "ConvTranspose", "AnalysisTransformV1",
+           "SynthesisTransformV1", "AnalysisBlock", "SynthesisBlock",
            "BlockStack", "HyperAnalysisTransform", "HyperSynthesisTransform",
            "TRANSFORMS"]
+
+RESIDUAL_MODES = ("add", "concat")
 
 
 def same_pads(n, k, s):
@@ -167,11 +171,53 @@ class ConvTranspose(nn.Module):
         return _add_bias(y, bias)
 
 
-class AnalysisBlock(nn.Module):
-    """Strided conv + two convs, ``h + f(h)`` skip (``add`` mode)."""
+class AnalysisTransformV1(nn.Module):
+    """Three stride-2 convs, k9 → k5 → k5 (linear, no bias): ×8 down."""
 
-    def __init__(self, cin, filters, kernel=3, strides=2, dtype=None):
+    def __init__(self, filters, dtype=None):
         super().__init__()
+        self.Conv_0 = Conv(1, filters, 9, 2, dtype=dtype)
+        self.Conv_1 = Conv(filters, filters, 5, 2, dtype=dtype)
+        self.Conv_2 = Conv(filters, filters, 5, 2, bias=False, dtype=dtype)
+
+    def forward(self, x):
+        x = F.relu(self.Conv_0(x))
+        x = F.relu(self.Conv_1(x))
+        return self.Conv_2(x)
+
+
+class SynthesisTransformV1(nn.Module):
+    """Three stride-2 transposed convs, k5 → k5 → k9 to one channel, all
+    ReLU: ×8 up."""
+
+    def __init__(self, filters, dtype=None):
+        super().__init__()
+        self.ConvTranspose_0 = ConvTranspose(filters, filters, 5, 2,
+                                             dtype=dtype)
+        self.ConvTranspose_1 = ConvTranspose(filters, filters, 5, 2,
+                                             dtype=dtype)
+        self.ConvTranspose_2 = ConvTranspose(filters, 1, 9, 2, dtype=dtype)
+
+    def forward(self, x):
+        x = F.relu(self.ConvTranspose_0(x))
+        x = F.relu(self.ConvTranspose_1(x))
+        return F.relu(self.ConvTranspose_2(x))
+
+
+def _skip(h, t, residual_mode):
+    """``add``: h + t; ``concat``: channels (t, h)."""
+    return h + t if residual_mode == "add" else torch.cat((t, h), dim=1)
+
+
+class AnalysisBlock(nn.Module):
+    """Strided conv + two convs with a skip from the strided output
+    (``residual_mode`` ``add``: ``h + f(h)``; ``concat``: ``(f(h), h)``
+    on channels, 2·filters out)."""
+
+    def __init__(self, cin, filters, kernel=3, strides=2, dtype=None,
+                 residual_mode="add"):
+        super().__init__()
+        self.residual_mode = residual_mode
         self.Conv_0 = Conv(cin, filters, kernel, strides, dtype=dtype)
         self.Conv_1 = Conv(filters, filters, kernel, dtype=dtype)
         self.Conv_2 = Conv(filters, filters, kernel, dtype=dtype)
@@ -179,14 +225,17 @@ class AnalysisBlock(nn.Module):
     def forward(self, x):
         h = F.relu(self.Conv_0(x))
         t = F.relu(self.Conv_1(h))
-        return h + F.relu(self.Conv_2(t))
+        return _skip(h, F.relu(self.Conv_2(t)), self.residual_mode)
 
 
 class SynthesisBlock(nn.Module):
-    """Strided transposed conv + two transposed convs, ``add`` skip."""
+    """Strided transposed conv + two transposed convs with a skip (as
+    :class:`AnalysisBlock`)."""
 
-    def __init__(self, cin, filters, kernel=3, strides=2, dtype=None):
+    def __init__(self, cin, filters, kernel=3, strides=2, dtype=None,
+                 residual_mode="add"):
         super().__init__()
+        self.residual_mode = residual_mode
         self.ConvTranspose_0 = ConvTranspose(cin, filters, kernel, strides,
                                              dtype=dtype)
         self.ConvTranspose_1 = ConvTranspose(filters, filters, kernel,
@@ -197,24 +246,29 @@ class SynthesisBlock(nn.Module):
     def forward(self, x):
         h = F.relu(self.ConvTranspose_0(x))
         t = F.relu(self.ConvTranspose_1(h))
-        return h + F.relu(self.ConvTranspose_2(t))
+        return _skip(h, F.relu(self.ConvTranspose_2(t)), self.residual_mode)
 
 
 class BlockStack(nn.Module):
     """Shared body of the V2 analysis/synthesis families."""
 
     def __init__(self, filters, widths, synthesis, cin, kernel=3,
-                 dtype=None):
+                 dtype=None, residual_mode="add"):
         super().__init__()
+        if residual_mode not in RESIDUAL_MODES:
+            raise ValueError(f"residual_mode {residual_mode!r} is not one "
+                             f"of {RESIDUAL_MODES}")
         self.synthesis = synthesis
         self.dtype = dtype
+        self.residual_mode = residual_mode
         block = SynthesisBlock if synthesis else AnalysisBlock
         name = "SynthesisBlock" if synthesis else "AnalysisBlock"
         c = cin
         for i, frac in enumerate(widths):
             f = int(filters * frac)
-            setattr(self, f"{name}_{i}", block(c, f, kernel, dtype=dtype))
-            c = f
+            setattr(self, f"{name}_{i}", block(c, f, kernel, dtype=dtype,
+                                               residual_mode=residual_mode))
+            c = f if residual_mode == "add" else 2 * f
         self.n_blocks = len(widths)
         self.block_name = name
         if synthesis:
@@ -230,24 +284,25 @@ class BlockStack(nn.Module):
         return self.Conv_0(x)
 
 
-def AnalysisTransformV2(filters, dtype=None):
+def AnalysisTransformV2(filters, dtype=None, residual_mode="add"):
     return BlockStack(filters, (0.5, 1, 1), synthesis=False, cin=1,
-                      dtype=dtype)
+                      dtype=dtype, residual_mode=residual_mode)
 
 
-def SynthesisTransformV2(filters, dtype=None):
+def SynthesisTransformV2(filters, dtype=None, residual_mode="add"):
     return BlockStack(filters, (1, 1, 0.5), synthesis=True, cin=filters,
-                      dtype=dtype)
+                      dtype=dtype, residual_mode=residual_mode)
 
 
-def AnalysisTransformProgressiveV2(filters, dtype=None):
+def AnalysisTransformProgressiveV2(filters, dtype=None, residual_mode="add"):
     return BlockStack(filters, (0.25, 0.5, 1), synthesis=False, cin=1,
-                      dtype=dtype)
+                      dtype=dtype, residual_mode=residual_mode)
 
 
-def SynthesisTransformProgressiveV2(filters, dtype=None):
+def SynthesisTransformProgressiveV2(filters, dtype=None,
+                                    residual_mode="add"):
     return BlockStack(filters, (1, 0.5, 0.25), synthesis=True, cin=filters,
-                      dtype=dtype)
+                      dtype=dtype, residual_mode=residual_mode)
 
 
 class HyperAnalysisTransform(nn.Module):
@@ -282,6 +337,8 @@ class HyperSynthesisTransform(nn.Module):
 
 
 TRANSFORMS = {
+    "AnalysisTransformV1": AnalysisTransformV1,
+    "SynthesisTransformV1": SynthesisTransformV1,
     "AnalysisTransformV2": AnalysisTransformV2,
     "SynthesisTransformV2": SynthesisTransformV2,
     "AnalysisTransformProgressiveV2": AnalysisTransformProgressiveV2,

@@ -7,10 +7,17 @@ distances are integers ≤ 3(L-1)², representable in f32.
 - :func:`squared_edt` — full 1-D passes ``out[i] = min_j g[j] + (i-j)²``
   (a dense [L, L] broadcast per pass, chunked over the leading dims so a
   batch of 64³ volumes never materialises at once).
+- :func:`squared_edt_carry` / :func:`squared_edt_argmin` — the full
+  passes carrying per-source values (normals, coordinates) to every voxel
+  from its nearest occupied voxel; ties take the smallest source index of
+  each pass, as ``jnp.argmin`` over the JAX package's ``[out, in]`` score
+  tensor does. The port computes the pass as a shift loop over the source
+  offset, in O(L) memory instead of that tensor's O(L²).
 - :func:`banded_squared_edt` / :func:`banded_squared_edt_argmin` — passes
   ``out[i] = min_{|k| ≤ band} g[i+k] + k²``: exact for every result
   ≤ band², upper bounds beyond; the argmin variant carries the flat index
-  of the nearest occupied voxel.
+  of the nearest occupied voxel. Their ties keep the first winner in scan
+  order (k = 0, then +k, -k), another rule than the full passes'.
 """
 
 from __future__ import annotations
@@ -18,7 +25,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["INF", "minplus_1d", "squared_edt", "banded_squared_edt",
+__all__ = ["INF", "minplus_1d", "squared_edt", "squared_edt_carry",
+           "squared_edt_argmin", "banded_squared_edt",
            "banded_squared_edt_argmin"]
 
 INF = 1e12
@@ -46,6 +54,64 @@ def squared_edt(occ):
     for ax in (-3, -2, -1):
         g = minplus_1d(g, ax)
     return g
+
+
+def _minplus_1d_arg(g, carries, axis):
+    """out[i] = min_j g[j] + (i-j)² along ``axis``, and every array of
+    ``carries`` gathered at the winning source j. Ties take the smallest
+    j: the sources are visited in ascending order (j = i + k for k from
+    -(L-1) up) and only a strictly smaller score replaces the best."""
+    gm = g.movedim(axis, -1)
+    L = gm.shape[-1]
+    cms = [c.movedim(axis, -1) for c in carries]
+    out = torch.full_like(gm, float("inf"))
+    outc = [torch.zeros_like(cm) for cm in cms]
+    for k in range(-(L - 1), L):
+        lo, hi = max(0, -k), min(L, L - k)  # outputs i with a source i + k
+        cand = gm[..., lo + k:hi + k] + float(k * k)
+        better = cand < out[..., lo:hi]
+        out[..., lo:hi] = torch.where(better, cand, out[..., lo:hi])
+        for oc, cm in zip(outc, cms):
+            oc[..., lo:hi] = torch.where(better, cm[..., lo + k:hi + k],
+                                         oc[..., lo:hi])
+    return out.movedim(-1, axis), [oc.movedim(-1, axis) for oc in outc]
+
+
+def squared_edt_carry(occ, carries):
+    """Squared EDT carrying per-source values to each voxel.
+
+    :param occ: [..., X, Y, Z] occupancy.
+    :param carries: list of f32 tensors broadcastable to ``occ``'s shape;
+        every voxel receives each one's value at its nearest occupied
+        voxel (the smallest source index of each pass on ties).
+    :return: (dist [..., X, Y, Z] f32, list of carried tensors).
+    """
+    occ_b = occ.to(torch.bool)
+    g = torch.where(occ_b, 0.0, INF).to(torch.float32)
+    carry = [c.to(torch.float32).expand(occ_b.shape) for c in carries]
+    for ax in (-3, -2, -1):
+        g, carry = _minplus_1d_arg(g, carry, ax)
+    return g, carry
+
+
+def _iota(shape, k, device):
+    """f32 coordinate ``k`` of every voxel of a ``shape`` volume."""
+    view = [1, 1, 1]
+    view[k] = shape[k]
+    return torch.arange(shape[k], dtype=torch.float32,
+                        device=device).view(view).expand(shape)
+
+
+def squared_edt_argmin(occ):
+    """Squared EDT plus the coordinates of the nearest occupied voxel.
+
+    :param occ: [..., X, Y, Z] occupancy.
+    :return: (dist [..., X, Y, Z] f32, nn [..., X, Y, Z, 3] int32).
+    """
+    shape = tuple(occ.shape[-3:])
+    g, carry = squared_edt_carry(
+        occ, [_iota(shape, k, occ.device) for k in range(3)])
+    return g, torch.stack([c.to(torch.int32) for c in carry], dim=-1)
 
 
 def _banded_minplus_1d(g, band, axis, carry=None):

@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 __all__ = ["flatten_blocks", "pack_attrs", "pack_coords", "unpack_coords",
-           "unflatten_points", "voxelize", "packbits", "unpackbits"]
+           "unflatten_points", "voxelize", "voxelize_attrs", "packbits",
+           "unpackbits"]
 
 
 def flatten_blocks(blocks, cols=(0, 1, 2), dtype=np.int16):
@@ -93,6 +94,28 @@ def voxelize(points, size):
                        device=points.device)
     grid[flat[valid]] = 1.0
     return grid.view(n, size, size, size, 1)
+
+
+def voxelize_attrs(points, attrs, size):
+    """Scatter per-point attributes onto the grid (points are unique
+    voxels, so every voxel receives at most one row).
+
+    :param points: [N, P, 3] int; rows with any coordinate outside
+        [0, size) (e.g. -1 padding) are dropped.
+    :param attrs: [N, P, A] float attribute rows.
+    :return: [N, size, size, size, A] float32.
+    """
+    n, p, a = attrs.shape
+    pts = points.to(torch.int64)
+    valid = torch.all((pts >= 0) & (pts < size), dim=-1)
+    bi = torch.arange(n, device=points.device)[:, None].expand(n, p)
+    flat = ((bi * size + pts[..., 0]) * size + pts[..., 1]) * size \
+        + pts[..., 2]
+    grid = torch.zeros(n * size ** 3, a, dtype=torch.float32,
+                       device=points.device)
+    grid.index_put_((flat[valid],), attrs[valid].to(torch.float32),
+                    accumulate=True)
+    return grid.view(n, size, size, size, a)
 
 
 _BITS = (128, 64, 32, 16, 8, 4, 2, 1)

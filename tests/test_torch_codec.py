@@ -313,7 +313,7 @@ def test_sweep_backends_give_identical_d1_streams(setup, backend):
     assert len(s["blocks"]) % BS  # the last chunk is a padded one
     assert dl[0] == s["data_list"][0]
     assert md[0]["metrics"] == s["metadata"][0]["metrics"]
-    with pytest.raises(NotImplementedError, match="bucket"):
+    with pytest.raises(ValueError, match="normals"):
         codec._sweep(None, None, None, ("d2_mse",), (np.inf,))
 
 

@@ -2,15 +2,21 @@
 """Where the time goes in the PyTorch port's encode and decode paths.
 
     python3 tools/torch_profile_main_path.py [--seed 300] [--top 20]
-                                             [--paths d1 A B C C_bf16 xla_bf16]
+        [--paths d1 A B C C_bf16 xla_bf16 c2 c1 host_fixed host_cut
+         point_d2_cut]
 
 Runs the paths ``chip_smoke.py`` drives (10-bit ``figure_cloud`` with
-normals, octree level 4, c3p at full width with ``bench_c3p.msgpack.gz``,
-batch 32) — the d1 path, path A (d1_mse + d2_mse with normals, kernel K3),
-path B (``sweep_backend="pallas"``, kernel K5), path C
-(``conv_backend="pallas"``, kernels K4a / K4b) in f32 and in bf16, and the
-cuDNN backend in bf16 beside it — each once to warm up, then once under
-``torch.profiler`` on one GPU, and prints for each:
+normals, octree level 4, batch 32; c3p at full width with
+``bench_c3p.msgpack.gz`` unless named) — the d1 path, path A (d1_mse +
+d2_mse with normals, kernel K3), path B (``sweep_backend="pallas"``,
+kernel K5), path C (``conv_backend="pallas"``, kernels K4a / K4b) in f32
+and in bf16, the cuDNN backend in bf16 beside it, the d1 path of c2 and
+c1 (V1 transforms, ``assets/rd/*/2.00e-04.msgpack.gz``), the
+host-threshold encoder (``compress_blocks``) with ``fixed_threshold`` on
+the whole cloud and adaptive on ``chip_smoke.cut_cloud``'s cut, and the
+point-based d2 sweep (``sweep_backend="xla"``, normals) on the cut — each
+once to warm up, then once under ``torch.profiler`` on one GPU, and prints
+for each:
 
 - the codec's host phase times (``logging`` INFO lines of
   ``pcc_geo_cnn_v2_tpu_torch.codec``),
@@ -50,19 +56,30 @@ FAMILIES = (("K1 bucket_colsums", ("bucket_colsums",)),
             ("copy / fill", ("copy", "fill", "memset", "memcpy")))
 
 
-# key → (title, BlockCodec / build_model arguments, encode arguments)
+D2 = dict(opt_metrics=("d1_mse", "d2_mse"), with_normals=True)
+HOST = dict(method="compress_blocks")
+# key → (title, model config, BlockCodec / build_model arguments, encode
+# arguments; ``method`` names the encoder, ``cut`` takes the cut cloud)
 PATHS = {
-    "d1": ("d1 path", {}, {}),
-    "A": ("path A (d1_mse + d2_mse, normals)", {},
-          dict(opt_metrics=("d1_mse", "d2_mse"), with_normals=True)),
-    "B": ("path B (sweep_backend='pallas')", dict(sweep_backend="pallas"),
-          {}),
-    "C": ("path C (conv_backend='pallas', f32)",
+    "d1": ("d1 path", "c3p", {}, {}),
+    "A": ("path A (d1_mse + d2_mse, normals)", "c3p", {}, D2),
+    "B": ("path B (sweep_backend='pallas')", "c3p",
+          dict(sweep_backend="pallas"), {}),
+    "C": ("path C (conv_backend='pallas', f32)", "c3p",
           dict(conv_backend="pallas"), {}),
-    "C_bf16": ("path C (conv_backend='pallas', bf16)",
+    "C_bf16": ("path C (conv_backend='pallas', bf16)", "c3p",
                dict(conv_backend="pallas", dtype="bfloat16"), {}),
-    "xla_bf16": ("cuDNN backend in bf16 (conv_backend='xla')",
+    "xla_bf16": ("cuDNN backend in bf16 (conv_backend='xla')", "c3p",
                  dict(dtype="bfloat16"), {}),
+    "c2": ("c2, d1 path", "c2", {}, {}),
+    "c1": ("c1, d1 path", "c1", {}, {}),
+    "host_fixed": ("host path, fixed_threshold", "c3p", {},
+                   dict(HOST, fixed_threshold=True)),
+    "host_cut": ("host path, adaptive sweep, the cut", "c3p", {},
+                 dict(HOST, cut=True)),
+    "point_d2_cut": ("point sweep (sweep_backend='xla'), d1_mse + d2_mse, "
+                     "the cut", "c3p", dict(sweep_backend="xla"),
+                     dict(D2, cut=True)),
 }
 
 
@@ -95,6 +112,7 @@ def main():
         return 2
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
 
+    from chip_smoke import ASSET, CUT_BLOCKS, RD_ASSETS, V1_LAMBDA, cut_cloud
     from pcc_geo_cnn_v2_tpu_torch.codec import BlockCodec
     from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
     from pcc_geo_cnn_v2_tpu_torch.utils.octree import partition_octree
@@ -104,23 +122,27 @@ def main():
     points, normals = figure_cloud(args.seed, 1024, with_normals=True)
     points6 = np.hstack([points, normals])
     blocks, binstr = partition_octree(points6, [0, 0, 0], [1024] * 3, 4)
-    params = load_asset_tree(
-        REPO / "pcc_geo_cnn_v2_tpu/assets/bench_c3p.msgpack.gz")
+    cut_pts, cut_blocks, cut_binstr = cut_cloud(blocks, binstr, CUT_BLOCKS)
 
-    def make(sweep_backend="bucket", **model_kw):
-        return BlockCodec(build_model("c3p", **model_kw), params,
-                          block_size=64, batch_blocks=32,
-                          sweep_backend=sweep_backend)
+    def make(config, sweep_backend="bucket", **model_kw):
+        asset = (ASSET if config == "c3p"
+                 else RD_ASSETS / config / f"{V1_LAMBDA}.msgpack.gz")
+        return BlockCodec(build_model(config, **model_kw),
+                          load_asset_tree(asset), block_size=64,
+                          batch_blocks=32, sweep_backend=sweep_backend)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    print(f"card: {card}; {len(blocks)} blocks")
+    print(f"card: {card}; {len(blocks)} blocks, the cut {CUT_BLOCKS}")
     for key in args.paths:
-        name, codec_kw, kw = PATHS[key]
+        name, config, codec_kw, kw = PATHS[key]
         if "dtype" in codec_kw:
             codec_kw = dict(codec_kw, dtype=getattr(torch, codec_kw["dtype"]))
-        rc = profile_path(name, make(**codec_kw), blocks, binstr, points6, kw,
+        kw = dict(kw)
+        cloud = ((cut_blocks, cut_binstr, cut_pts) if kw.pop("cut", False)
+                 else (blocks, binstr, points6))
+        rc = profile_path(name, make(config, **codec_kw), *cloud, kw,
                           args.top)
         if rc:
             return rc
@@ -137,10 +159,12 @@ def profile_path(name, codec, blocks, binstr, points, kw, top):
         save_compressed_file,
     )
 
+    kw = dict(kw)
+    encode = getattr(codec, kw.pop("method", "compress_blocks_device_opt"))
+
     def run():
         t0 = time.time()
-        data_list, _ = codec.compress_blocks_device_opt(
-            blocks, binstr, points, 1024, 4, **kw)
+        data_list, _ = encode(blocks, binstr, points, 1024, 4, **kw)
         blobs = [gzip.compress(save_compressed_file(binstr, payload, 1024,
                                                     4))
                  for payload in data_list]
