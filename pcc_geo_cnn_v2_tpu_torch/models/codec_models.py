@@ -1,12 +1,18 @@
-"""Compression models, inference entry points.
+"""Compression models: the training graph and the inference entry points.
 
-Port of ``CompressionModelV1.encode_syms`` / ``decode`` (factorized prior
-on y, ``pcc_geo_cnn_v2_tpu/models/codec_models.py:38-80``) and
-``CompressionModelV2.encode_syms`` / ``decode_z`` / ``decode_y``
-(scale hyperprior, ``:161-186``). Public tensors
-keep the JAX package's NDHWC layouts — x ``[N, B, B, B, 1]``, symbols
-``[N, b, b, b, C]``, x_hat ``[N, B, B, B, 1]`` f32 — and are converted to
-NCDHW once per call. Convolutions run in f32; quantization is f32 too.
+Port of ``CompressionModelV1`` (factorized prior on y,
+``pcc_geo_cnn_v2_tpu/models/codec_models.py:38-80``) and
+``CompressionModelV2`` (scale hyperprior, ``:83-186``): ``forward`` is the
+JAX ``__call__`` (the training graph, noise quantization, likelihoods for
+the RD loss), ``aux_loss`` the factorized prior's; ``encode_syms`` /
+``decode`` / ``decode_z`` / ``decode_y`` the inference side. Public
+tensors keep the JAX package's NDHWC layouts — x ``[N, B, B, B, 1]``,
+latents and symbols ``[N, b, b, b, C]``, x_hat ``[N, B, B, B, 1]`` f32 —
+and are converted to NCDHW once per call. Quantization is f32.
+
+The training noise is an argument: U(-0.5, 0.5) tensors of y's (and z's)
+NDHWC shape. The training graph always runs the module convs, as the JAX
+one always runs flax's: the fused-tail kernels K4a / K4b have no backward.
 """
 
 from __future__ import annotations
@@ -51,6 +57,18 @@ class CompressionModelV1(nn.Module):
         self.analysis_t = TRANSFORMS[analysis](num_filters, dtype=dtype)
         self.synthesis_t = TRANSFORMS[synthesis](num_filters, dtype=dtype)
         self.entropy_bottleneck = FactorizedPrior(num_filters)
+
+    def forward(self, x, training=True, noise_y=None):
+        """x [N,B,B,B,1] → dict(y, y_tilde, y_likelihoods, x_tilde), NDHWC;
+        ``noise_y`` is the factorized prior's noise on y."""
+        y = _to_ndhwc(self.analysis_t(_to_ncdhw(x)))
+        y_tilde, y_lik = self.entropy_bottleneck(y, training, noise_y)
+        x_tilde = _to_ndhwc(self.synthesis_t(_to_ncdhw(y_tilde)))
+        return {"y": y, "y_tilde": y_tilde, "y_likelihoods": y_lik,
+                "x_tilde": x_tilde}
+
+    def aux_loss(self):
+        return self.entropy_bottleneck.aux_loss()
 
     @torch.no_grad()
     def encode_syms(self, x):
@@ -111,6 +129,24 @@ class CompressionModelV2(nn.Module):
         for t in (self.analysis_t, self.synthesis_t):
             if self._fused(t):
                 packed_tails(t, self.dtype or torch.float32)
+
+    def forward(self, x, training=True, noise_z=None, noise_y=None):
+        """x [N,B,B,B,1] → the JAX ``__call__``'s dict (y, z, z_tilde,
+        z_likelihoods, sigma_tilde, y_tilde, y_likelihoods, x_tilde), NDHWC;
+        ``noise_z`` / ``noise_y`` are the two entropy models' noises."""
+        y = self.analysis_t(_to_ncdhw(x))
+        z = _to_ndhwc(self.hyper_analysis_t(y))
+        y = _to_ndhwc(y)
+        z_tilde, z_lik = self.entropy_bottleneck(z, training, noise_z)
+        sigma = _to_ndhwc(self.hyper_synthesis_t(_to_ncdhw(z_tilde)))
+        y_tilde, y_lik = self.conditional(y, sigma, training, noise_y)
+        x_tilde = _to_ndhwc(self.synthesis_t(_to_ncdhw(y_tilde)))
+        return {"y": y, "z": z, "z_tilde": z_tilde, "z_likelihoods": z_lik,
+                "sigma_tilde": sigma, "y_tilde": y_tilde,
+                "y_likelihoods": y_lik, "x_tilde": x_tilde}
+
+    def aux_loss(self):
+        return self.entropy_bottleneck.aux_loss()
 
     @torch.no_grad()
     def encode_syms(self, x):

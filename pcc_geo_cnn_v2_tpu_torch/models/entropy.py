@@ -1,4 +1,4 @@
-"""Entropy models, inference half: factorized prior + conditional Gaussian.
+"""Entropy models: factorized prior + conditional Gaussian.
 
 Port of ``pcc_geo_cnn_v2_tpu/models/entropy.py``. Symbol quantization,
 dequantization and the Gaussian scale-index map run as torch ops in f32
@@ -6,20 +6,26 @@ dequantization and the Gaussian scale-index map run as torch ops in f32
 JAX package's float64 numpy code, copied verbatim so that the port's
 tables are byte-equal to the reference's.
 
-Training pieces (likelihoods, ``aux_loss``, the ``lower_bound`` custom
-gradient) are not ported yet.
+Training half: the likelihoods of both models, the factorized prior's
+``aux_loss`` and the ``lower_bound`` custom gradient. The training noise is
+an argument (NDHWC, the shape of the tensor it is added to): the JAX
+package draws it inside the modules from ``jax.random`` keys, which the
+port cannot reproduce, so parity tests pass JAX's draws in.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from scipy.special import erfc as _erfc
 from torch import nn
 
 __all__ = [
+    "lower_bound",
     "FactorizedPrior",
     "GaussianConditional",
     "CdfTable",
@@ -30,7 +36,29 @@ __all__ = [
     "default_scale_table",
 ]
 
+LIKELIHOOD_BOUND = 1e-9
 RANGE_CODER_PRECISION = 16
+
+
+class _LowerBound(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bound):
+        ctx.save_for_backward(x)
+        ctx.bound = bound
+        return torch.clamp_min(x, bound)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        pass_through = (x >= ctx.bound) | (g < 0)
+        return torch.where(pass_through, g, torch.zeros_like(g)), None
+
+
+def lower_bound(x, bound):
+    """max(x, bound) with a gradient that can push x back up: it passes
+    where ``x >= bound`` or where the upstream gradient would increase x
+    (tfc's ``math_ops.lower_bound``, JAX ``models/entropy.py:52-73``)."""
+    return _LowerBound.apply(x, float(bound))
 
 
 def default_scale_table(scales_min=0.11, scales_max=256.0, levels=64):
@@ -39,13 +67,17 @@ def default_scale_table(scales_min=0.11, scales_max=256.0, levels=64):
 
 
 class FactorizedPrior(nn.Module):
-    """Per-channel factorized density parameters (flax names kept so that
+    """Learned per-channel factorized density (flax names kept so that
     :func:`pcc_geo_cnn_v2_tpu_torch.weights.params_from_jax` maps them
-    one to one). Inference uses only ``quantiles``."""
+    one to one). Inference uses only ``quantiles``; training evaluates the
+    density on ``[C, 1, M]`` views of NDHWC tensors, as the JAX module."""
 
-    def __init__(self, channels, filters=(3, 3, 3)):
+    def __init__(self, channels, filters=(3, 3, 3), init_scale=10.0,
+                 tail_mass=1e-9):
         super().__init__()
-        dims = (1,) + tuple(filters) + (1,)
+        self.channels, self.filters = channels, tuple(filters)
+        self.init_scale, self.tail_mass = init_scale, tail_mass
+        dims = (1,) + self.filters + (1,)
         for k in range(len(filters) + 1):
             self.register_parameter(f"matrix_{k}", nn.Parameter(
                 torch.zeros(channels, dims[k + 1], dims[k])))
@@ -55,6 +87,74 @@ class FactorizedPrior(nn.Module):
                 self.register_parameter(f"factor_{k}", nn.Parameter(
                     torch.zeros(channels, dims[k + 1], 1)))
         self.quantiles = nn.Parameter(torch.zeros(channels, 3))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        """flax's initial distributions (not its numbers): matrices
+        ``log(expm1(1 / scale / dims[k + 1]))``, biases U(-0.5, 0.5) drawn
+        from ``generator`` (a CPU one), factors 0, quantiles ``[-s, 0, s]``
+        with s = ``init_scale``."""
+        dims = (1,) + self.filters + (1,)
+        scale = self.init_scale ** (1.0 / (len(self.filters) + 1))
+        for k in range(len(self.filters) + 1):
+            getattr(self, f"matrix_{k}").fill_(
+                float(np.log(np.expm1(1.0 / scale / dims[k + 1]))))
+            bias = getattr(self, f"bias_{k}")
+            bias.copy_(torch.rand(bias.shape, generator=generator) - 0.5)
+            if k < len(self.filters):
+                getattr(self, f"factor_{k}").zero_()
+        self.quantiles.copy_(torch.tensor(
+            [-self.init_scale, 0.0, self.init_scale]).expand(
+                self.channels, 3))
+
+    def _logits_cumulative(self, x, stop_params=False):
+        """Monotone logit of the cumulative; x: [C, 1, M] -> [C, 1, M].
+        ``stop_params`` detaches the density parameters (the aux loss moves
+        only the quantiles)."""
+        sg = (lambda t: t.detach()) if stop_params else (lambda t: t)
+        u = x
+        for k in range(len(self.filters) + 1):
+            m = F.softplus(sg(getattr(self, f"matrix_{k}")))
+            u = torch.matmul(m, u) + sg(getattr(self, f"bias_{k}"))
+            if k < len(self.filters):
+                u = u + torch.tanh(sg(getattr(self, f"factor_{k}"))) \
+                    * torch.tanh(u)
+        return u
+
+    def _likelihood(self, y_cm):
+        """Likelihood of integer-width bins at y; y_cm: [C, 1, M]."""
+        lo = self._logits_cumulative(y_cm - 0.5)
+        hi = self._logits_cumulative(y_cm + 0.5)
+        # evaluate in whichever tail is more precise (tfc sign trick)
+        sign = -torch.sign(lo + hi).detach()
+        return torch.abs(torch.sigmoid(sign * hi) - torch.sigmoid(sign * lo))
+
+    def forward(self, y, training, noise=None):
+        """(y_tilde, likelihoods) of NDHWC ``y``: ``y + noise`` when
+        training (``noise`` U(-0.5, 0.5), y's shape), else rounded around
+        the medians."""
+        c = y.shape[-1]
+        if training:
+            if noise is None:
+                raise ValueError("training quantization needs the noise")
+            y_tilde = y + noise
+        else:
+            y_tilde = torch.round(y - self.medians()) + self.medians()
+        flat = torch.movedim(y_tilde, -1, 0).reshape(c, 1, -1)
+        p = lower_bound(self._likelihood(flat), LIKELIHOOD_BOUND)
+        return y_tilde, torch.movedim(p.reshape((c,) + y.shape[:-1]), 0, -1)
+
+    def aux_loss(self):
+        """Drives the quantiles to the (t/2, 1/2, 1 - t/2) cumulative
+        targets (the reference minimizes it with its own Adam(1e-3))."""
+        logits = self._logits_cumulative(self.quantiles[:, None, :],
+                                         stop_params=True)
+        t = self.tail_mass
+        targets = torch.log(
+            torch.tensor([t / 2, 0.5, 1 - t / 2], dtype=torch.float32)
+            / torch.tensor([1 - t / 2, 0.5, t / 2], dtype=torch.float32))
+        return torch.sum(torch.abs(logits[:, 0, :]
+                                   - targets.to(logits.device)))
 
     def medians(self):
         return self.quantiles[:, 1]
@@ -67,6 +167,11 @@ class FactorizedPrior(nn.Module):
         return symbols.to(torch.float32) + self.medians()
 
 
+def _std_cumulative(x):
+    """Standardized Gaussian CDF via erfc (stable left tail)."""
+    return 0.5 * torch.special.erfc(-x / math.sqrt(2.0))
+
+
 @dataclasses.dataclass(frozen=True)
 class GaussianConditional:
     """Zero-mean Gaussian entropy model with a fixed scale table."""
@@ -76,7 +181,27 @@ class GaussianConditional:
     tail_mass: float = 2.0 ** -8
 
     def bound_scale(self, sigma):
+        """Inference: the forward of :func:`lower_bound`."""
         return torch.clamp_min(sigma, float(self.scale_table[0]))
+
+    def likelihood(self, y, sigma):
+        """P(round(y) bin) under N(0, sigma²), with noise-compatible bins."""
+        sigma = lower_bound(sigma, float(self.scale_table[0]))
+        v = torch.abs(y)
+        upper = _std_cumulative((0.5 - v) / sigma)
+        lower = _std_cumulative((-0.5 - v) / sigma)
+        return lower_bound(upper - lower, LIKELIHOOD_BOUND)
+
+    def __call__(self, y, sigma, training, noise=None):
+        """(y_tilde, likelihoods): ``y + noise`` when training, else
+        round(y)."""
+        if training:
+            if noise is None:
+                raise ValueError("training quantization needs the noise")
+            y_tilde = y + noise
+        else:
+            y_tilde = torch.round(y)
+        return y_tilde, self.likelihood(y_tilde, sigma)
 
     def indexes(self, sigma):
         """Per-element row index: smallest table scale ≥ sigma."""
