@@ -118,9 +118,26 @@ exit):
    runs on the cut's chunk (the normal votes are summed in fixed point).
    Then ``n_thresholds=64`` on the cut through K1, K5 and K3 (with
    normals): each launched, bit-exact, the d1 streams byte-equal.
+15. Training (``training.Trainer``), c3p at full width (64 filters, 64³
+   blocks, f32 without TF32), warm-started from ``bench_c3p.msgpack.gz``,
+   on the cloud's blocks as a ``BlockDataset`` (the last 10% of blocks the
+   validation set): one step's loss and every parameter's gradient on the
+   card against the CPU on the same 4 blocks and noise (loss within 1e-5
+   relative, each gradient leaf within 1e-3 of its largest |g|);
+   ``fit_blocks`` for 20 steps at batch 32, every loss finite, the log
+   written, no kernel launched, s a step and blocks/s over the warm
+   steps, the peak memory; a new trainer on the directory resumes with
+   params and Adam state equal bit for bit, and 5 steps of it equal 5
+   steps of the first, bit for bit, under
+   ``torch.use_deterministic_algorithms(True)``; 3 steps under
+   ``torch.profiler`` (device busy share, convolutions against everything
+   else); then ``save_asset`` of the trained weights, read back by
+   ``cli.common.load_params``, through the d1 path on the whole cloud:
+   bit-exact, encoder D1 PSNR equal to the host KD-tree's, K1 and K2
+   launched.
 
 The launch counts are set to 0 just before each path and read just after.
-Phases 12-14 print their seconds.
+Phases 12-15 print their seconds.
 Prints a ``kernels`` JSON line (per kernel: launches on its path, max
 error against the plain version, its median time (K1, K2, K3, K4 and K5 per
 call in bursts of four calls, so that the wrapper's host time overlaps
@@ -211,6 +228,16 @@ D2_PSNR_TOL_DB = 1.0
 RD_ASSETS = REPO / "pcc_geo_cnn_v2_tpu/assets/rd"
 V1_LAMBDA = "2.00e-04"
 CUT_BLOCKS = 16
+# phase 15: training c3p at batch BATCH (the JAX default of 32); the card's
+# step against the CPU's on PARITY_BLOCKS blocks, loss within 1e-5
+# relative, every gradient leaf within 1e-3 of its largest |g| (cuDNN and
+# oneDNN sum the conv products in other orders)
+TRAIN_STEPS, RESUME_STEPS, PROFILE_STEPS, PARITY_BLOCKS = 20, 5, 3, 4
+TRAIN_LOSS_REL, TRAIN_GRAD_TOL = 1e-5, 1e-3
+# device kernels of the convolutions and their gradients (cuDNN, CUTLASS-
+# style xmma, implicit gemm), as the profile tool's family
+CONV_KEYS = ("conv", "cudnn", "sm90_xmma", "implicit", "gemm", "wgrad",
+             "dgrad", "fprop")
 
 
 def log(msg):
@@ -1162,9 +1189,224 @@ def host_d1_mse(block, x_hat, t):
     return compute_metrics(block[:, :3], cand, RESOLUTION - 1)["d1_mse"]
 
 
-def main():
+def device_us(evt):
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def profile_steps(fn, n):
+    """``fn(i)`` for i < n under ``torch.profiler``: (wall s, device-busy
+    ms, convolution ms) — kernels run on one stream, so busy = the sum of
+    the kernels' device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kern = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and device_us(e) > 0]
+    assert kern, "the profiler recorded no device kernels"
+    busy = sum(device_us(e) for e in kern) / 1e3
+    conv = sum(device_us(e) for e in kern
+               if any(k in e.key.lower() for k in CONV_KEYS)) / 1e3
+    return wall, busy, conv
+
+
+def train_parity(state, pts, noise, cfg, device):
+    """c3p's loss and every parameter's gradient for one batch, on
+    ``device`` and on the CPU, from the same weights and noise."""
+    from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
+    from pcc_geo_cnn_v2_tpu_torch.training import make_loss_fn
+
+    out = []
+    for dev in (device, "cpu"):
+        model = build_model("c3p").to(dev)
+        model.load_state_dict(state)
+        total, _ = make_loss_fn(model, cfg)(
+            pts.to(dev), {k: v.to(dev) for k, v in noise.items()})
+        total.backward()
+        out.append((float(total.detach()),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (loss, grads), (loss_cpu, grads_cpu) = out
+    assert abs(loss - loss_cpu) <= TRAIN_LOSS_REL * abs(loss_cpu), \
+        (loss, loss_cpu)
+    worst = 0.0
+    for name, g in grads_cpu.items():
+        err = float((grads[name] - g).abs().max())
+        scale = float(g.abs().max())
+        assert err <= TRAIN_GRAD_TOL * scale, (name, err, scale)
+        worst = max(worst, err / max(scale, 1e-30))
+    return loss, loss_cpu, worst
+
+
+def check_training(device, blocks, params, drive, expect_launches, points,
+                   psnr_d1):
+    """Phase 15: c3p trained at full width from the committed weights; the
+    card's step against the CPU's, ``fit_blocks``, a bit-equal resume, and
+    the export encoded through K1 and K2. Returns the export path's
+    launch counts."""
+    import tempfile
+
     import torch
 
+    from pcc_geo_cnn_v2_tpu_torch.cli.common import load_params
+    from pcc_geo_cnn_v2_tpu_torch.codec import BlockCodec, deterministic_convs
+    from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
+    from pcc_geo_cnn_v2_tpu_torch.ops import kernels
+    from pcc_geo_cnn_v2_tpu_torch.training import (
+        TrainConfig,
+        Trainer,
+        draw_noise,
+    )
+    from pcc_geo_cnn_v2_tpu_torch.utils.data import BlockDataset
+    from pcc_geo_cnn_v2_tpu_torch.weights import (
+        params_from_jax,
+        params_to_jax,
+        save_asset,
+    )
+
+    t_phase = time.time()
+    n_val = max(int(len(blocks) * 0.1), 1)
+    train_ds = BlockDataset(blocks[:-n_val])
+    val_ds = BlockDataset(blocks[-n_val:], max_points=train_ds.max_points)
+    cfg = TrainConfig(batch_size=BATCH, block_size=BLOCK,
+                      max_steps=TRAIN_STEPS, val_every=TRAIN_STEPS,
+                      val_batches=1, log_every=1)
+
+    # 1. one step on the card against the port on the CPU, in f32 without
+    # TF32, as the trainer sets it
+    deterministic_convs()
+    t0 = time.time()
+    pts = torch.as_tensor(train_ds._pack(np.arange(PARITY_BLOCKS)))
+    probe = build_model("c3p")
+    noise = draw_noise(probe, PARITY_BLOCKS, BLOCK,
+                       torch.Generator().manual_seed(1))
+    loss, loss_cpu, worst = train_parity(params_from_jax(params), pts, noise,
+                                         cfg, device)
+    log(f"training step parity, c3p on {PARITY_BLOCKS} blocks of {BLOCK}^3: "
+        f"loss {loss!r} on the card, {loss_cpu!r} on the CPU "
+        f"({abs(loss - loss_cpu) / abs(loss_cpu):.2e} relative); worst "
+        f"gradient leaf {worst:.2e} of its largest |g| "
+        f"({time.time() - t0:.1f} s)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir, asset = Path(tmp) / "run", Path(tmp) / "trained.msgpack.gz"
+        # 2. fit_blocks, full width, batch 32, warm-started from the asset
+        trainer = Trainer(build_model("c3p"), cfg, run_dir, seed=0,
+                          warm_start=ASSET, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.time()
+        best = trainer.fit_blocks(train_ds, val_ds)
+        torch.cuda.synchronize()
+        t_fit = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+        assert not any(kernels.launches.values()), kernels.launches
+        records = [json.loads(line) for line in
+                   (run_dir / "train_log.jsonl").read_text().splitlines()]
+        train = [r for r in records if r["split"] == "train"]
+        assert [r["step"] for r in train] == list(range(1, TRAIN_STEPS + 1))
+        assert all(np.isfinite(r["loss"]) and np.isfinite(r["aux_loss"])
+                   for r in train) and np.isfinite(best), records
+        warm = [1.0 / r["steps_per_sec"] for r in train[2:]]
+        s_step = float(np.median(warm))
+
+        # 3. resume: a new trainer on the directory restores the saved step
+        # bit for bit; then RESUME_STEPS steps of it equal the same steps of
+        # the trainer that went straight on, bit for bit
+        t0 = time.time()
+        resumed = Trainer(build_model("c3p"), cfg, run_dir, seed=0,
+                          device=device)
+        assert resumed.start_step == TRAIN_STEPS, resumed.start_step
+
+        def assert_equal_states():
+            for k, v in trainer.model.state_dict().items():
+                assert torch.equal(v, resumed.model.state_dict()[k]), k
+            sa, sb = (t.opt.state_dict()["state"] for t in (trainer, resumed))
+            for i in sa:
+                for key in sa[i]:
+                    assert torch.equal(sa[i][key], sb[i][key]), (i, key)
+
+        assert_equal_states()
+        data = trainer.device_data(train_ds)
+        torch.use_deterministic_algorithms(True)
+        try:
+            for t in (trainer, resumed):
+                for step in range(TRAIN_STEPS + 1,
+                                  TRAIN_STEPS + 1 + RESUME_STEPS):
+                    t.step_blocks(data, step)
+            assert_equal_states()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        log(f"resume: a new trainer on the directory restores step "
+            f"{TRAIN_STEPS} with params and Adam state equal bit for bit; "
+            f"{RESUME_STEPS} more steps equal the straight run's bit for bit "
+            f"under torch.use_deterministic_algorithms(True) "
+            f"({time.time() - t0:.1f} s)")
+        del resumed
+
+        step0 = TRAIN_STEPS + RESUME_STEPS + 1
+        wall, busy, conv = profile_steps(
+            lambda i: trainer.step_blocks(data, step0 + i), PROFILE_STEPS)
+        log(f"training c3p (64 filters, {BLOCK}^3, f32, batch {BATCH}, "
+            f"{len(train_ds)} train / {len(val_ds)} val blocks): "
+            f"{TRAIN_STEPS} steps in {t_fit:.2f} s with the val pass, every "
+            f"loss finite (first {train[0]['loss']:.5f}, last "
+            f"{train[-1]['loss']:.5f}, val {best:.5f}); warm steps "
+            f"{s_step:.4f} s a step (min {min(warm):.4f}, max "
+            f"{max(warm):.4f}), {BATCH / s_step:.2f} blocks/s; peak memory "
+            f"{peak / 2**30:.3f} GiB; {PROFILE_STEPS} steps under the "
+            f"profiler: {wall:.3f} s wall, device busy {busy:.1f} ms "
+            f"({100 * busy / 1e3 / wall:.1f}%, idle "
+            f"{100 - 100 * busy / 1e3 / wall:.1f}%), convolutions "
+            f"{conv:.1f} ms ({100 * conv / busy:.1f}% of device time), "
+            f"everything else {busy - conv:.1f} ms; no kernel launched")
+
+        # 4. export, read back, encode the whole cloud through K1 and K2
+        tree = params_to_jax(trainer.model.state_dict())
+        save_asset(tree, asset)
+        back = load_params(asset)
+        for k, v in params_from_jax(tree).items():
+            assert torch.equal(v, params_from_jax(back)[k]), k
+        codec_t = BlockCodec(build_model("c3p"), back, block_size=BLOCK,
+                             batch_blocks=BATCH, device=device)
+        blobs, metadata, decoded, counts, t_enc, t_dec = drive(codec_t)
+    bpp_t = len(blobs[0]) * 8 / len(points)
+    psnr_t = metadata[0]["metrics"]["d1_psnr"]
+    host_t = host_d1_psnr(points, decoded[0], RESOLUTION - 1)
+    assert np.isfinite(psnr_t) and 0 < bpp_t < 8, (psnr_t, bpp_t)
+    assert abs(psnr_t - host_t) < 1e-6, (psnr_t, host_t)
+    expect_launches("the trained weights' d1 path", counts,
+                    ("bucket_colsums", "halo_edt"),
+                    ("bucket_colsums_d2", "edt_sweep"))
+    log(f"trained weights exported ({asset.name}, read back equal), d1 path: "
+        f"{len(decoded[0])} decoded points, bit-exact; {bpp_t:.4f} bpp, D1 "
+        f"PSNR {psnr_t:.4f} dB (host KD-tree {host_t:.4f}; committed weights "
+        f"{psnr_d1:.4f}); encode {t_enc:.2f} s, decode {t_dec:.2f} s; "
+        f"launches {counts}")
+    log(f"phase 15: {time.time() - t_phase:.1f} s")
+    return counts
+
+
+def main():
+    import os
+
+    import torch
+
+    # cuBLAS reads this when it makes its handle; phase 15 runs the
+    # factorized prior's batched products under deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1620,10 +1862,15 @@ def run(device):
         f"byte-equal, bit-exact; picks {t64['K1'][1]}")
     log(f"phase 14: {time.time() - t_phase:.1f} s")
 
+    # phase 15: training c3p, then its weights through the d1 path
+    counts_tr = check_training(device, blocks, params, drive,
+                               expect_launches, points, psnr)
+
     by_path = {"d1": counts_d1, "A": counts_a, "B": counts_b, "C": counts_c,
                "C_bf16": counts_cb, "c2": counts_v1["c2"],
                "c1": counts_v1["c1"], "host_fixed": counts_hf,
-               "host_cut": counts_hc, "point_d2_cut": counts_pd}
+               "host_cut": counts_hc, "point_d2_cut": counts_pd,
+               "trained_c3p": counts_tr}
     for name, shapes in k4.items():
         # headline numbers: f32 at the stage with the most work
         top = max((r for r in shapes if r["dtype"] == "f32"),

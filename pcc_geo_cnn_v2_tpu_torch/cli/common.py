@@ -5,7 +5,7 @@ from __future__ import annotations
 import logging
 
 from pcc_geo_cnn_v2_tpu_torch.models.configs import MODEL_CONFIGS, build_model
-from pcc_geo_cnn_v2_tpu_torch.weights import load_asset_tree
+from pcc_geo_cnn_v2_tpu_torch.training import load_params as _load_params
 
 logger = logging.getLogger(__name__)
 
@@ -36,8 +36,9 @@ def build_model_from_args(args):
 
 def load_params(checkpoint_dir):
     """Weights for codec use. ``--checkpoint_dir`` names a ``.msgpack.gz``
-    asset in the layout ``tools/export_rd_assets.py`` writes (orbax
-    training checkpoints are not read by the port yet)."""
-    tree = load_asset_tree(checkpoint_dir)
-    logger.info("loaded asset %s", checkpoint_dir)
+    asset in the layout ``tools/export_rd_assets.py`` writes, or a port
+    training directory (its latest ``ckpt_<step>``; orbax checkpoints of
+    the JAX package are not read)."""
+    tree = _load_params(checkpoint_dir)
+    logger.info("loaded weights %s", checkpoint_dir)
     return tree

@@ -76,7 +76,8 @@ def main(argv=None):
     parser.add_argument("--dec_files", nargs="*",
                         help="Write merged-decode PLYs at encode time.")
     parser.add_argument("--checkpoint_dir", required=True,
-                        help="A .msgpack.gz weight asset.")
+                        help="A .msgpack.gz weight asset or a training "
+                             "directory (its latest ckpt_<step>).")
     add_model_args(parser)
     parser.add_argument("--opt_metrics", nargs="+", default=["d1_mse"])
     parser.add_argument("--max_deltas", nargs="+", default=[np.inf],

@@ -37,7 +37,8 @@ def main(argv=None):
     parser.add_argument("--input_files", nargs="+", required=True)
     parser.add_argument("--output_files", nargs="+", required=True)
     parser.add_argument("--checkpoint_dir", required=True,
-                        help="A .msgpack.gz weight asset.")
+                        help="A .msgpack.gz weight asset or a training "
+                             "directory (its latest ckpt_<step>).")
     add_model_args(parser)
     parser.add_argument("--batch_blocks", type=int, default=32)
     args = parser.parse_args(argv)

@@ -1,19 +1,81 @@
-"""Training: parameter init, the RD loss of one batch.
+"""Training loop: RD-loss updates, the validation / early-stop protocol,
+checkpoints, the done-marker contract.
 
-Port of ``pcc_geo_cnn_v2_tpu/training.py``.
+Port of ``pcc_geo_cnn_v2_tpu/training.py``: Adam(1e-4) on the model and
+Adam(1e-3) on the factorized prior's quantiles, the focal + mbpov
+objective (plus the aux loss), validation every ``val_every`` steps on
+the RD loss alone, best-val checkpoints, early stop, warm start, resume
+from the latest checkpoint and a ``done`` marker that sweep drivers read.
+
+Differences from the JAX package, each forced by the framework:
+
+- Checkpoints are the port's own (orbax needs JAX): ``ckpt_<step>/``
+  holding ``state.pt`` with the params (a state dict), the Adam state and
+  the step, read with ``torch.load(weights_only=True)``.
+  :func:`load_params` reads one, or a flax ``.msgpack.gz`` asset, into the
+  flax layout the codec takes.
+- A step's batch indices and noise come from a generator seeded by
+  (seed, step), as JAX folds the step into its key, so a resumed run takes
+  the same steps as an uninterrupted one. The numbers are torch's, not
+  ``jax.random``'s.
+- Precision is set explicitly: f32, no TF32, deterministic cuDNN
+  algorithms (``codec.deterministic_convs``), as the JAX package trains
+  in f32.
+- :meth:`Trainer.fit_blocks` keeps the dataset on the device and samples
+  batches with replacement, as the JAX scan loop, one step a Python
+  iteration. The data-parallel mesh is not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import logging
 import math
+import re
+import shutil
+import time
+from pathlib import Path
 
+import numpy as np
 import torch
 from torch import nn
 
+from pcc_geo_cnn_v2_tpu_torch.codec import deterministic_convs, resolve_device
+from pcc_geo_cnn_v2_tpu_torch.models.codec_models import CompressionModelV2
 from pcc_geo_cnn_v2_tpu_torch.models.entropy import FactorizedPrior
 from pcc_geo_cnn_v2_tpu_torch.models.transforms import Conv, ConvTranspose
+from pcc_geo_cnn_v2_tpu_torch.ops.losses import rd_loss
+from pcc_geo_cnn_v2_tpu_torch.ops.voxel import voxelize
+from pcc_geo_cnn_v2_tpu_torch.weights import (
+    load_asset_tree,
+    params_from_jax,
+    params_to_jax,
+)
 
-__all__ = ["init_params", "make_optimizer"]
+logger = logging.getLogger(__name__)
+
+__all__ = ["TrainConfig", "Trainer", "init_params", "make_optimizer",
+           "make_loss_fn", "draw_noise", "load_params", "read_checkpoint"]
+
+_CKPT = re.compile(r"ckpt_(\d+)")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    lmbda: float = 1e-4
+    alpha: float = 0.9
+    gamma: float = 2.0
+    lr: float = 1e-4
+    aux_lr: float = 1e-3
+    batch_size: int = 32
+    block_size: int = 64
+    max_steps: int = 100_000
+    val_every: int = 500
+    val_batches: int = 10
+    early_stop_patience: int = 2000  # steps without val improvement
+    log_every: int = 100
+    keep_checkpoints: int = 2
 
 # flax's truncated-normal variance scaling divides the stddev by the std of
 # a unit normal truncated to [-2, 2], so that the draws have variance 1/fan_in
@@ -54,3 +116,282 @@ def make_optimizer(model, lr=1e-4, aux_lr=1e-3):
     return torch.optim.Adam([{"params": main, "lr": lr},
                              {"params": aux, "lr": aux_lr}],
                             betas=(0.9, 0.999), eps=1e-8)
+
+
+def draw_noise(model, n, block_size, generator):
+    """U(-0.5, 0.5) training noise for ``n`` blocks, NDHWC on the
+    generator's device: ``noise_y`` on y (x/8), and for a hyperprior model
+    ``noise_z`` on z (x/16)."""
+    c = model.num_filters
+    shapes = {"noise_y": (n,) + (-(-block_size // 8),) * 3 + (c,)}
+    if isinstance(model, CompressionModelV2):
+        shapes["noise_z"] = (n,) + (-(-block_size // 16),) * 3 + (c,)
+    return {k: torch.rand(s, generator=generator, device=generator.device)
+            - 0.5 for k, s in shapes.items()}
+
+
+def make_loss_fn(model, config):
+    """``(points [N, P, 3] int, noise) -> (loss + aux, logs)``: voxelize,
+    the training graph, the RD loss, the aux loss (JAX
+    ``training.py:101-120``). ``logs["loss"]`` is the RD loss alone."""
+    is_v2 = isinstance(model, CompressionModelV2)
+
+    def loss_fn(points, noise):
+        x = voxelize(points, config.block_size)
+        out = model(x, training=True, **noise)
+        liks = [out["y_likelihoods"]]
+        if is_v2:
+            liks.append(out["z_likelihoods"])
+        loss, logs = rd_loss(x, out["x_tilde"], liks, config.lmbda,
+                             gamma=config.gamma, alpha=config.alpha)
+        aux = model.aux_loss()
+        logs["aux_loss"] = aux
+        return loss + aux, {k: v.detach() for k, v in logs.items()}
+
+    return loss_fn
+
+
+def _checkpoints(directory):
+    found = [(int(m.group(1)), p) for p in Path(directory).glob("ckpt_*")
+             if (m := _CKPT.fullmatch(p.name))]
+    return [p for _, p in sorted(found)]
+
+
+def read_checkpoint(path):
+    """A ``ckpt_<step>/`` directory → dict(params, opt_state, step), on the
+    CPU."""
+    return torch.load(Path(path) / "state.pt", map_location="cpu",
+                      weights_only=True)
+
+
+def load_params(path):
+    """Weights in the flax layout (``{"params": ...}``, numpy leaves) from
+    a ``.msgpack.gz`` asset or from the latest ``ckpt_<step>`` of a
+    training directory."""
+    path = Path(path)
+    if not path.is_dir():
+        return load_asset_tree(path)
+    latest = Trainer.latest_checkpoint(path)
+    if latest is None:
+        raise FileNotFoundError(f"no ckpt_<step> in {path}")
+    return params_to_jax(read_checkpoint(latest)["params"])
+
+
+class Trainer:
+    """Runs the training protocol over block datasets on one device.
+
+    :param model: a port model (``models.configs.build_model``); its
+        parameters are initialised here (:func:`init_params` from ``seed``),
+        then restored from the latest checkpoint of ``checkpoint_dir`` or,
+        when there is none, taken from ``warm_start`` (a training directory
+        or a ``.msgpack.gz`` asset; params only).
+    :param device: the card unless ``"cpu"`` is asked for.
+    """
+
+    def __init__(self, model, config: TrainConfig, checkpoint_dir, seed=42,
+                 warm_start=None, device=None):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            deterministic_convs()
+        self.config, self.seed = config, seed
+        self.model = init_params(model, torch.Generator().manual_seed(seed))
+        self.model.to(self.device).train()
+        self.opt = make_optimizer(self.model, config.lr, config.aux_lr)
+        self.loss_fn = make_loss_fn(self.model, config)
+        self.dir = Path(checkpoint_dir).resolve()
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.log_path = self.dir / "train_log.jsonl"
+        self.start_step = 0
+        latest = self.latest_checkpoint(self.dir)
+        if latest is not None:
+            self.restore(latest)
+            logger.info("resumed from %s (step %d)", latest, self.start_step)
+        elif warm_start:
+            self.model.load_state_dict(params_from_jax(
+                load_params(warm_start)))
+            logger.info("warm start from %s", warm_start)
+
+    # -- checkpoint protocol ------------------------------------------------
+
+    @staticmethod
+    def latest_checkpoint(directory):
+        ckpts = _checkpoints(directory)
+        return ckpts[-1] if ckpts else None
+
+    def save(self, step):
+        """Write ``ckpt_<step>`` (through a temporary directory, renamed
+        when complete) and keep the newest ``keep_checkpoints``."""
+        path = self.dir / f"ckpt_{step}"
+        tmp = self.dir / f"ckpt_{step}.tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+        torch.save({"params": self.model.state_dict(),
+                    "opt_state": self.opt.state_dict(), "step": step},
+                   tmp / "state.pt")
+        shutil.rmtree(path, ignore_errors=True)
+        tmp.rename(path)
+        for old in _checkpoints(self.dir)[: -self.config.keep_checkpoints]:
+            shutil.rmtree(old)
+        return path
+
+    def restore(self, path, params_only=False):
+        # read on the CPU: the loads copy to the parameters' device, and
+        # Adam's step counts stay CPU tensors, as a fresh Adam keeps them
+        state = read_checkpoint(path)
+        self.model.load_state_dict(state["params"])
+        if not params_only:
+            self.opt.load_state_dict(state["opt_state"])
+            self.start_step = int(state["step"])
+
+    # -- steps ----------------------------------------------------------------
+
+    def _generator(self, *key):
+        """A generator on the device seeded by (seed, *key): 0 and the step
+        for a training step, 1, the step and the batch for validation."""
+        state = np.random.SeedSequence((self.seed,) + key).generate_state(2)
+        seed = (int(state[0]) << 31) ^ int(state[1])
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _update(self, points, generator):
+        noise = draw_noise(self.model, len(points), self.config.block_size,
+                           generator)
+        self.opt.zero_grad(set_to_none=True)
+        total, logs = self.loss_fn(points, noise)
+        total.backward()
+        self.opt.step()
+        return logs
+
+    def step_batch(self, points, step):
+        """One update on a host batch ``[N, P, 3]`` (the feed loop)."""
+        return self._update(torch.as_tensor(points, device=self.device),
+                            self._generator(0, step))
+
+    def step_blocks(self, data, step):
+        """One update on ``batch_size`` blocks drawn with replacement from
+        the device-resident ``data`` (:meth:`device_data`)."""
+        g = self._generator(0, step)
+        idx = torch.randint(0, len(data), (self.config.batch_size,),
+                            generator=g, device=self.device)
+        return self._update(data[idx].to(torch.int32), g)
+
+    @torch.no_grad()
+    def eval_batch(self, points, step, i):
+        """Logs of the loss on a host batch, no update (``logs["loss"]`` is
+        the RD loss without aux)."""
+        pts = torch.as_tensor(points, device=self.device)
+        return self.loss_fn(pts, draw_noise(
+            self.model, len(pts), self.config.block_size,
+            self._generator(1, step, i)))[1]
+
+    @torch.no_grad()
+    def val_loss_blocks(self, data, step):
+        """Mean RD loss (without aux) over ``min(len // batch, val_batches)``
+        (at least 1) batches covering the device-resident val set in order
+        (JAX ``make_scan_val_step``)."""
+        cfg = self.config
+        n = len(data)
+        n_batches = min(max(n // cfg.batch_size, 1), cfg.val_batches)
+        total = 0.0
+        for i in range(n_batches):
+            idx = (torch.arange(cfg.batch_size, device=self.device)
+                   + i * cfg.batch_size) % n
+            pts = data[idx].to(torch.int32)
+            total += float(self.loss_fn(pts, draw_noise(
+                self.model, cfg.batch_size, cfg.block_size,
+                self._generator(1, step, i)))[1]["loss"])
+        return total / n_batches
+
+    def device_data(self, ds):
+        """A ``BlockDataset`` packed once and put on the device as int8
+        (int16 above 128³ blocks)."""
+        arr = ds._pack(np.arange(len(ds)))
+        dtype = np.int8 if self.config.block_size <= 128 else np.int16
+        return torch.as_tensor(arr.astype(dtype), device=self.device)
+
+    # -- loops ----------------------------------------------------------------
+
+    def _log(self, step, split, logs, extra=None):
+        rec = {"step": step, "split": split,
+               **{k: float(v) for k, v in logs.items()}}
+        if extra:
+            rec.update(extra)
+        with open(self.log_path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    def _validate(self, step, val_loss, best):
+        """Log ``val_loss``; save on improvement. ``best`` = [loss, step];
+        returns True when early stopping."""
+        self._log(step, "val", {"loss": val_loss})
+        logger.info("step %d val loss %.4f (best %.4f)", step, val_loss,
+                    best[0])
+        if val_loss < best[0]:
+            best[:] = [val_loss, step]
+            self.save(step)
+        elif step - best[1] >= self.config.early_stop_patience:
+            logger.info("early stop at %d (best %d)", step, best[1])
+            return True
+        return False
+
+    def _finish(self, step, best):
+        if self.latest_checkpoint(self.dir) is None:
+            self.save(step)
+        (self.dir / "done").touch()
+        return best[0]
+
+    def fit(self, train_batches, val_batches_fn):
+        """Train until max_steps or early stop on host-fed batches; returns
+        the best val loss (None when the done marker exists).
+
+        :param train_batches: infinite iterator of [N, P, 3] int batches.
+        :param val_batches_fn: callable returning an iterator of val
+            batches.
+        """
+        cfg = self.config
+        if (self.dir / "done").exists():
+            logger.info("done marker exists, skipping training")
+            return None
+        best = [np.inf, self.start_step]
+        step = self.start_step
+        t0 = time.time()
+        while step < cfg.max_steps:
+            step += 1
+            logs = self.step_batch(next(train_batches), step)
+            # always log the first step so short runs still produce curves
+            if step % cfg.log_every == 0 or step == self.start_step + 1:
+                self._log(step, "train", logs, {
+                    "steps_per_sec": cfg.log_every / (time.time() - t0)})
+                t0 = time.time()
+            if step % cfg.val_every == 0:
+                losses = [float(self.eval_batch(vb, step, i)["loss"])
+                          for i, vb in zip(range(cfg.val_batches),
+                                           val_batches_fn())]
+                if not losses:
+                    raise ValueError("validation produced zero batches")
+                if self._validate(step, float(np.mean(losses)), best):
+                    break
+        return self._finish(step, best)
+
+    def fit_blocks(self, train_ds, val_ds):
+        """The same protocol over device-resident block datasets
+        (``utils.data.BlockDataset``): packed once, uploaded as int8 /
+        int16, batches sampled on the device with replacement (JAX
+        ``fit_blocks``; not step-for-step comparable with :meth:`fit`)."""
+        cfg = self.config
+        if (self.dir / "done").exists():
+            logger.info("done marker exists, skipping training")
+            return None
+        data, val_data = self.device_data(train_ds), self.device_data(val_ds)
+        best = [np.inf, self.start_step]
+        step = self.start_step
+        t0 = time.time()
+        while step < cfg.max_steps:
+            step += 1
+            logs = self.step_blocks(data, step)
+            if step % cfg.log_every == 0:
+                self._log(step, "train", logs, {
+                    "steps_per_sec": cfg.log_every / (time.time() - t0)})
+                t0 = time.time()
+            if step % cfg.val_every == 0 and self._validate(
+                    step, self.val_loss_blocks(val_data, step), best):
+                break
+        return self._finish(step, best)

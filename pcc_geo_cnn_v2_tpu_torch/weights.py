@@ -1,19 +1,23 @@
-"""Committed flax ``.msgpack.gz`` weight assets → torch state dicts.
+"""flax ``.msgpack.gz`` weight assets ↔ torch state dicts.
 
 The JAX package stores its flagship and RD weights as flax
 ``serialization.to_bytes`` output, gzipped (``pcc_geo_cnn_v2_tpu/assets``).
-The port reads them without ``msgpack`` or ``flax``:
+The port reads and writes them without ``msgpack`` or ``flax``:
 
-- :func:`msgpack_restore` is a small pure-Python msgpack decoder. Flax
-  packs every ndarray as msgpack ExtType code 1 whose payload is itself a
-  msgpack ``(shape, dtype_name, raw_bytes)`` triple (code 3 = numpy scalar,
-  same payload).
+- :func:`msgpack_restore` is a small pure-Python msgpack decoder and
+  :func:`msgpack_serialize` its encoder. Flax packs every ndarray as
+  msgpack ExtType code 1 whose payload is itself a msgpack ``(shape,
+  dtype_name, raw_bytes)`` triple (code 3 = numpy scalar, same payload),
+  and every other value in msgpack's shortest form.
 - :func:`params_from_jax` is the ONE function that carries JAX parameters
   across: every flax conv kernel (DHWIO) becomes an OIDHW weight. That
   holds for ``nn.ConvTranspose`` too: with ``transpose_kernel=False`` it
   is an lhs-dilated correlation with the kernel NOT flipped, and the port
   computes it as such (``models/transforms.ConvTranspose``), so no flip
   and no I/O swap is needed — the ones ``F.conv_transpose3d`` would want.
+  :func:`params_to_jax` is its inverse, and :func:`save_asset` writes a
+  tree in the layout the JAX package's export tools write
+  (``tools/export_rd_assets.py``), so the port's trained weights go back.
 - :func:`tail_weights_from_jax` packs the residual-tail kernels of a flax
   transform subtree for the fused-conv kernels (``ops/fused_conv.py``), the
   same packing the port's modules get from their own parameters.
@@ -30,7 +34,8 @@ import torch
 
 from pcc_geo_cnn_v2_tpu_torch.ops.fused_conv import pack_tail_weights
 
-__all__ = ["msgpack_restore", "load_asset_tree", "params_from_jax",
+__all__ = ["msgpack_restore", "msgpack_serialize", "load_asset_tree",
+           "save_asset", "params_from_jax", "params_to_jax",
            "tail_weights_from_jax"]
 
 _EXT_NDARRAY = 1
@@ -126,10 +131,85 @@ def msgpack_restore(data: bytes):
     return out
 
 
+def _head(small, codes, n):
+    """msgpack's shortest header for a length (or value) ``n``: ``small``
+    (a fix-form base, or None) while n fits its bits, else the first of
+    ``codes`` = ((code, struct format), ...) whose format holds n."""
+    if small is not None and n < small[1]:
+        return bytes([small[0] | n])
+    for code, fmt in codes:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(">" + fmt, n)
+    raise ValueError(f"{n} too large for msgpack")
+
+
+def _pack(v, out):
+    if v is None or isinstance(v, bool):
+        out.append({None: b"\xc0", False: b"\xc2", True: b"\xc3"}[v])
+    elif isinstance(v, int):
+        if 0 <= v < 128 or -32 <= v < 0:
+            out.append(struct.pack(">b" if v < 0 else ">B", v))
+        elif v >= 0:
+            out.append(_head(None, ((0xCC, "B"), (0xCD, "H"), (0xCE, "I"),
+                                    (0xCF, "Q")), v))
+        else:
+            for code, fmt in ((0xD0, "b"), (0xD1, "h"), (0xD2, "i"),
+                              (0xD3, "q")):
+                if v >= -(1 << (8 * struct.calcsize(fmt) - 1)):
+                    out.append(bytes([code]) + struct.pack(">" + fmt, v))
+                    break
+    elif isinstance(v, float):
+        out.append(b"\xcb" + struct.pack(">d", v))
+    elif isinstance(v, str):
+        b = v.encode("utf-8")
+        out.append(_head((0xA0, 32), ((0xD9, "B"), (0xDA, "H"),
+                                      (0xDB, "I")), len(b)) + b)
+    elif isinstance(v, bytes):
+        out.append(_head(None, ((0xC4, "B"), (0xC5, "H"), (0xC6, "I")),
+                         len(v)) + v)
+    elif isinstance(v, (list, tuple)):
+        out.append(_head((0x90, 16), ((0xDC, "H"), (0xDD, "I")), len(v)))
+        for item in v:
+            _pack(item, out)
+    elif isinstance(v, dict):
+        out.append(_head((0x80, 16), ((0xDE, "H"), (0xDF, "I")), len(v)))
+        for k, item in v.items():
+            _pack(k, out)
+            _pack(item, out)
+    elif isinstance(v, (np.ndarray, np.generic)):
+        a = np.asarray(v)
+        payload = msgpack_serialize((a.shape, a.dtype.name, a.tobytes("C")))
+        code = _EXT_NDARRAY if isinstance(v, np.ndarray) else _EXT_NPSCALAR
+        fix = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        head = (bytes([fix[len(payload)]]) if len(payload) in fix else
+                _head(None, ((0xC7, "B"), (0xC8, "H"), (0xC9, "I")),
+                      len(payload)))
+        out.append(head + struct.pack(">b", code) + payload)
+    else:
+        raise TypeError(f"cannot msgpack {type(v).__name__}")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Encode a nested dict of ndarrays as flax ``msgpack_serialize`` does
+    (byte for byte: shortest forms, str and bin types, ndarrays as ExtType
+    1). Arrays above flax's 2³⁰-byte chunk size are not split."""
+    out = []
+    _pack(tree, out)
+    return b"".join(out)
+
+
 def load_asset_tree(path):
     """Read a gzipped flax asset into a nested dict of numpy arrays (the
     counterpart of the JAX package's ``cli/common.load_params_asset``)."""
     return msgpack_restore(gzip.decompress(Path(path).read_bytes()))
+
+
+def save_asset(tree, path):
+    """Write ``tree`` (numpy leaves) as a gzipped flax asset, the layout
+    :func:`load_asset_tree` and the JAX package's loaders read (gzip
+    header time 0, so equal trees give equal files)."""
+    Path(path).write_bytes(gzip.compress(msgpack_serialize(tree),
+                                         compresslevel=9, mtime=0))
 
 
 def _flatten(tree, prefix=()):
@@ -159,6 +239,28 @@ def params_from_jax(tree) -> dict:
             np.array(a, copy=True, order="C"))
     return state
 
+
+def params_to_jax(state_dict) -> dict:
+    """Inverse of :func:`params_from_jax`: a state dict of the port's
+    modules → ``{"params": {...}}`` with numpy f32 leaves, OIDHW weights
+    back to DHWIO kernels, keys sorted at every level as JAX's tree
+    utilities leave a flax tree."""
+    tree = {}
+    for name, t in state_dict.items():
+        *mods, leaf = name.split(".")
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            leaf, a = "kernel", a.transpose(2, 3, 4, 1, 0)  # OIDHW → DHWIO
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(a)
+
+    def ordered(node):
+        return {k: ordered(v) if isinstance(v, dict) else v
+                for k, v in sorted(node.items())}
+
+    return {"params": ordered(tree)}
 
 
 def tail_weights_from_jax(stack_tree, dtype=torch.float32) -> list:

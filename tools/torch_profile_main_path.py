@@ -3,7 +3,7 @@
 
     python3 tools/torch_profile_main_path.py [--seed 300] [--top 20]
         [--paths d1 A B C C_bf16 xla_bf16 c2 c1 host_fixed host_cut
-         point_d2_cut]
+         point_d2_cut train]
 
 Runs the paths ``chip_smoke.py`` drives (10-bit ``figure_cloud`` with
 normals, octree level 4, batch 32; c3p at full width with
@@ -24,6 +24,14 @@ for each:
   CUDA kernel time over wall time; kernels run on one stream),
 - the top device kernels by total CUDA time, grouped into families
   (cuDNN convolution, sort, the port's K1–K5 kernels, other).
+
+``train`` profiles the trainer instead: c3p at full width warm-started
+from ``bench_c3p.msgpack.gz``, batch 32 of the cloud's 64³ blocks, f32.
+After two warm-up steps it splits each of five steps into data (batch
+indices, gather, noise), voxelize (timed alone on the step's batch; the
+loss voxelizes again), forward and loss, backward and optimizer, by CUDA
+events on the device's timeline, then profiles three steps as above
+(wall, busy share, families, top kernels) and prints the peak memory.
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -104,8 +112,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=300)
     ap.add_argument("--top", type=int, default=20)
-    ap.add_argument("--paths", nargs="+", default=list(PATHS),
-                    choices=list(PATHS))
+    ap.add_argument("--paths", nargs="+", default=list(PATHS) + ["train"],
+                    choices=list(PATHS) + ["train"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -136,6 +144,11 @@ def main():
                           text=True).stdout.strip()
     print(f"card: {card}; {len(blocks)} blocks, the cut {CUT_BLOCKS}")
     for key in args.paths:
+        if key == "train":
+            rc = profile_train(blocks, args.top)
+            if rc:
+                return rc
+            continue
         name, config, codec_kw, kw = PATHS[key]
         if "dtype" in codec_kw:
             codec_kw = dict(codec_kw, dtype=getattr(torch, codec_kw["dtype"]))
@@ -151,7 +164,6 @@ def main():
 
 def profile_path(name, codec, blocks, binstr, points, kw, top):
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pcc_geo_cnn_v2_tpu_torch.coding.syntax import (
@@ -183,7 +195,15 @@ def profile_path(name, codec, blocks, binstr, points, kw, top):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t_enc, t_dec = run()
-    wall = t_enc + t_dec
+    print(f"wall: encode {t_enc:.3f} s ({len(blocks) / t_enc:.2f} blocks/s),"
+          f" decode of every stream {t_dec:.3f} s")
+    return summarize(prof, t_enc + t_dec, top)
+
+
+def summarize(prof, wall, top):
+    """Device busy share, families and top kernels of a profile."""
+    from torch.autograd import DeviceType
+
     # device-side events only (CPU ops also carry their kernels' time)
     kern = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA
@@ -192,8 +212,6 @@ def profile_path(name, codec, blocks, binstr, points, kw, top):
         print("the profiler recorded no device kernels")
         return 1
     total_us = sum(device_us(e) for e in kern)
-    print(f"wall: encode {t_enc:.3f} s ({len(blocks) / t_enc:.2f} blocks/s),"
-          f" decode of every stream {t_dec:.3f} s")
     print(f"device busy: {total_us / 1e6:.3f} s of {wall:.3f} s wall "
           f"({100 * total_us / 1e6 / wall:.1f}%); idle "
           f"{100 - 100 * total_us / 1e6 / wall:.1f}%")
@@ -208,6 +226,78 @@ def profile_path(name, codec, blocks, binstr, points, kw, top):
         print(f"  {device_us(e) / 1e3:10.3f} ms  {e.count:6d}x  "
               f"{e.key[:110]}")
     return 0
+
+
+def profile_train(blocks, top, steps=5, profiled=3):
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import ASSET
+    from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
+    from pcc_geo_cnn_v2_tpu_torch.ops.voxel import voxelize
+    from pcc_geo_cnn_v2_tpu_torch.training import (
+        TrainConfig,
+        Trainer,
+        draw_noise,
+    )
+    from pcc_geo_cnn_v2_tpu_torch.utils.data import BlockDataset
+
+    cfg = TrainConfig(block_size=64, batch_size=32)
+    phases = ("data", "voxelize", "forward + loss", "backward", "optimizer")
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = Trainer(build_model("c3p"), cfg, tmp, seed=0, warm_start=ASSET)
+        data = tr.device_data(BlockDataset(blocks))
+        print(f"=== training c3p, batch {cfg.batch_size} of "
+              f"{len(blocks)} blocks, f32: two warm-up steps")
+        torch.cuda.reset_peak_memory_stats()
+        for step in (1, 2):
+            tr.step_blocks(data, step)
+        torch.cuda.synchronize()
+        times = []
+        for step in range(3, 3 + steps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            t0 = time.time()
+            ev[0].record()
+            g = tr._generator(0, step)
+            idx = torch.randint(0, len(data), (cfg.batch_size,),
+                                generator=g, device=data.device)
+            pts = data[idx].to(torch.int32)
+            noise = draw_noise(tr.model, cfg.batch_size, cfg.block_size, g)
+            ev[1].record()
+            voxelize(pts, cfg.block_size)
+            ev[2].record()
+            tr.opt.zero_grad(set_to_none=True)
+            total, _ = tr.loss_fn(pts, noise)
+            ev[3].record()
+            total.backward()
+            ev[4].record()
+            tr.opt.step()
+            ev[5].record()
+            torch.cuda.synchronize()
+            times.append([ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+                         + [1e3 * (time.time() - t0)])
+        med = np.median(np.array(times), axis=0)
+        print(f"median of {steps} steps, ms on the device's timeline "
+              f"(between CUDA events):")
+        for name, ms in zip(phases, med[:5]):
+            print(f"  {name:16s} {ms:10.3f} ms  {100 * ms / med[5]:5.1f}% "
+                  f"of the step")
+        print(f"  step wall        {med[5]:10.3f} ms "
+              f"({cfg.batch_size / med[5] * 1e3:.2f} blocks/s); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        print(f"=== training c3p: {profiled} steps under the profiler")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            for step in range(100, 100 + profiled):
+                tr.step_blocks(data, step)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        print(f"wall: {wall:.3f} s, {wall / profiled:.4f} s a step")
+        return summarize(prof, wall, top)
 
 
 if __name__ == "__main__":
