@@ -123,7 +123,8 @@ exit):
    on the cloud's blocks as a ``BlockDataset`` (the last 10% of blocks the
    validation set): one step's loss and every parameter's gradient on the
    card against the CPU on the same 4 blocks and noise (loss within 1e-5
-   relative, each gradient leaf within 1e-3 of its largest |g|);
+   relative, each gradient leaf within 1e-3 of its largest |g|, the CPU
+   replaying the card's ReLU gates: ``ReluGates``);
    ``fit_blocks`` for 20 steps at batch 32, every loss finite, the log
    written, no kernel launched, s a step and blocks/s over the warm
    steps, the peak memory; a new trainer on the directory resumes with
@@ -231,7 +232,8 @@ CUT_BLOCKS = 16
 # phase 15: training c3p at batch BATCH (the JAX default of 32); the card's
 # step against the CPU's on PARITY_BLOCKS blocks, loss within 1e-5
 # relative, every gradient leaf within 1e-3 of its largest |g| (cuDNN and
-# oneDNN sum the conv products in other orders)
+# oneDNN sum the conv products in other orders; the CPU replays the card's
+# ReLU gates, see ReluGates)
 TRAIN_STEPS, RESUME_STEPS, PROFILE_STEPS, PARITY_BLOCKS = 20, 5, 3, 4
 TRAIN_LOSS_REL, TRAIN_GRAD_TOL = 1e-5, 1e-3
 # device kernels of the convolutions and their gradients (cuDNN, CUTLASS-
@@ -1222,31 +1224,94 @@ def profile_steps(fn, n):
     return wall, busy, conv
 
 
+class ReluGates:
+    """``F.relu`` of the port's transforms, recording each call's gate
+    (x > 0) in call order, or replaying recorded gates as ``x * gate``.
+
+    A ReLU is discontinuous in its gradient at 0: where f32 rounding puts a
+    pre-activation on the other side of 0 on one device, the whole upstream
+    gradient of that element passes on one side and not on the other. At c3p
+    on 4 blocks of 64³ that happens a few times a step; on the card it
+    moved one leaf's gradient by 4.2e-3 of its largest |g| against an f64
+    run, with every other leaf within 8.3e-4 (PERF.md §6, PR 11). The
+    parity step replays the card's gates on the CPU, so that the two
+    gradients compare arithmetic, and counts the gates the CPU's own
+    forward would have set otherwise."""
+
+    def __init__(self):
+        self.gates, self.replay, self.flips = [], None, 0
+
+    def __call__(self, x):
+        import torch
+
+        if self.replay is None:
+            self.gates.append((x > 0).cpu())
+            return torch.relu(x)
+        gate = self.gates[self.replay].to(x.device)
+        self.replay += 1
+        self.flips += int(((x > 0) != gate).sum())
+        return x * gate.to(x.dtype)
+
+    def patch(self):
+        """Context manager: the transforms' ``F`` with this ``relu``."""
+        import contextlib
+
+        import torch.nn.functional as F
+
+        from pcc_geo_cnn_v2_tpu_torch.models import transforms
+
+        class Functional:
+            relu = self
+
+            def __getattr__(_, name):
+                return getattr(F, name)
+
+        @contextlib.contextmanager
+        def patched():
+            transforms.F = Functional()
+            try:
+                yield self
+            finally:
+                transforms.F = F
+
+        return patched()
+
+
 def train_parity(state, pts, noise, cfg, device):
     """c3p's loss and every parameter's gradient for one batch, on
-    ``device`` and on the CPU, from the same weights and noise."""
+    ``device`` and on the CPU, from the same weights and noise; the CPU
+    step replays the card's ReLU gates (:class:`ReluGates`). Returns the
+    two losses, the worst leaf's error over its largest |g|, the gates the
+    CPU would have set otherwise, and the worst leaf without the replay."""
     from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
     from pcc_geo_cnn_v2_tpu_torch.training import make_loss_fn
 
-    out = []
-    for dev in (device, "cpu"):
+    def step(dev):
         model = build_model("c3p").to(dev)
         model.load_state_dict(state)
         total, _ = make_loss_fn(model, cfg)(
             pts.to(dev), {k: v.to(dev) for k, v in noise.items()})
         total.backward()
-        out.append((float(total.detach()),
-                    {n: p.grad.cpu() for n, p in model.named_parameters()}))
-    (loss, grads), (loss_cpu, grads_cpu) = out
+        return (float(total.detach()),
+                {n: p.grad.cpu() for n, p in model.named_parameters()})
+
+    def worst(a, b):
+        return max(float((a[n] - g).abs().max())
+                   / max(float(g.abs().max()), 1e-30) for n, g in b.items())
+
+    gates = ReluGates()
+    with gates.patch():
+        loss, grads = step(device)
+        gates.replay = 0
+        loss_cpu, grads_cpu = step("cpu")
+    free = worst(grads, step("cpu")[1])
     assert abs(loss - loss_cpu) <= TRAIN_LOSS_REL * abs(loss_cpu), \
         (loss, loss_cpu)
-    worst = 0.0
     for name, g in grads_cpu.items():
         err = float((grads[name] - g).abs().max())
         scale = float(g.abs().max())
         assert err <= TRAIN_GRAD_TOL * scale, (name, err, scale)
-        worst = max(worst, err / max(scale, 1e-30))
-    return loss, loss_cpu, worst
+    return loss, loss_cpu, worst(grads, grads_cpu), gates.flips, free
 
 
 def check_training(device, blocks, params, drive, expect_launches, points,
@@ -1291,12 +1356,14 @@ def check_training(device, blocks, params, drive, expect_launches, points,
     probe = build_model("c3p")
     noise = draw_noise(probe, PARITY_BLOCKS, BLOCK,
                        torch.Generator().manual_seed(1))
-    loss, loss_cpu, worst = train_parity(params_from_jax(params), pts, noise,
-                                         cfg, device)
+    loss, loss_cpu, worst, flips, free = train_parity(
+        params_from_jax(params), pts, noise, cfg, device)
     log(f"training step parity, c3p on {PARITY_BLOCKS} blocks of {BLOCK}^3: "
         f"loss {loss!r} on the card, {loss_cpu!r} on the CPU "
         f"({abs(loss - loss_cpu) / abs(loss_cpu):.2e} relative); worst "
-        f"gradient leaf {worst:.2e} of its largest |g| "
+        f"gradient leaf {worst:.2e} of its largest |g| with the card's ReLU "
+        f"gates replayed on the CPU ({flips} gates of the CPU's own forward "
+        f"differ; without the replay the worst leaf is {free:.2e}) "
         f"({time.time() - t0:.1f} s)")
 
     with tempfile.TemporaryDirectory() as tmp:

@@ -318,6 +318,15 @@ class Trainer:
         with open(self.log_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
 
+    def _log_train(self, step, logs, t0):
+        """Log a training step; the rate counts ``log_every`` steps since
+        ``t0`` up to this step's logs on the host (reading them waits for
+        the device). Returns the new ``t0``."""
+        logs = {k: float(v) for k, v in logs.items()}
+        self._log(step, "train", logs, {
+            "steps_per_sec": self.config.log_every / (time.time() - t0)})
+        return time.time()
+
     def _validate(self, step, val_loss, best):
         """Log ``val_loss``; save on improvement. ``best`` = [loss, step];
         returns True when early stopping."""
@@ -358,9 +367,7 @@ class Trainer:
             logs = self.step_batch(next(train_batches), step)
             # always log the first step so short runs still produce curves
             if step % cfg.log_every == 0 or step == self.start_step + 1:
-                self._log(step, "train", logs, {
-                    "steps_per_sec": cfg.log_every / (time.time() - t0)})
-                t0 = time.time()
+                t0 = self._log_train(step, logs, t0)
             if step % cfg.val_every == 0:
                 losses = [float(self.eval_batch(vb, step, i)["loss"])
                           for i, vb in zip(range(cfg.val_batches),
@@ -388,9 +395,7 @@ class Trainer:
             step += 1
             logs = self.step_blocks(data, step)
             if step % cfg.log_every == 0:
-                self._log(step, "train", logs, {
-                    "steps_per_sec": cfg.log_every / (time.time() - t0)})
-                t0 = time.time()
+                t0 = self._log_train(step, logs, t0)
             if step % cfg.val_every == 0 and self._validate(
                     step, self.val_loss_blocks(val_data, step), best):
                 break

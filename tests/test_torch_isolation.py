@@ -114,6 +114,16 @@ def test_codec_without_device_raises_on_cuda_less_host():
         BlockCodec(build_model("c3p"), {}, device=None)
 
 
+def test_trainer_without_device_raises_on_cuda_less_host(tmp_path):
+    _no_cuda()
+    from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
+    from pcc_geo_cnn_v2_tpu_torch.training import TrainConfig, Trainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(build_model("c1"), TrainConfig(), tmp_path, device=None)
+    assert not list(tmp_path.iterdir())  # nothing written before the raise
+
+
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     _no_cuda()
     from pcc_geo_cnn_v2_tpu_torch import native

@@ -30,7 +30,9 @@ from ``bench_c3p.msgpack.gz``, batch 32 of the cloud's 64³ blocks, f32.
 After two warm-up steps it splits each of five steps into data (batch
 indices, gather, noise), voxelize (timed alone on the step's batch; the
 loss voxelizes again), forward and loss, backward and optimizer, by CUDA
-events on the device's timeline, then profiles three steps as above
+events on the device's timeline, times each conv layer's forward and
+backward in one more step (CUDA events from module hooks; the sub-pixel
+transposed convs are one layer each), then profiles three steps as above
 (wall, busy share, families, top kernels) and prints the peak memory.
 
 Needs a CUDA device; exits non-zero without one.
@@ -228,6 +230,49 @@ def summarize(prof, wall, top):
     return 0
 
 
+def layer_times(tr, data, cfg, step=50):
+    """Forward and backward ms of every conv layer in one training step,
+    from CUDA events recorded by module hooks, largest backward first."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.models.transforms import Conv, ConvTranspose
+
+    events, hooks = {}, []
+
+    def record(name, key):
+        def hook(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.setdefault(name, {})[key] = ev
+        return hook
+
+    for name, mod in tr.model.named_modules():
+        if isinstance(mod, (Conv, ConvTranspose)):
+            hooks += [mod.register_forward_pre_hook(record(name, "f0")),
+                      mod.register_forward_hook(record(name, "f1")),
+                      mod.register_full_backward_pre_hook(record(name, "b0")),
+                      mod.register_full_backward_hook(record(name, "b1"))]
+    try:
+        tr.step_blocks(data, step)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    rows = []
+    for name, ev in events.items():
+        mod = tr.model.get_submodule(name)
+        w = mod.weight.shape
+        rows.append((ev["b0"].elapsed_time(ev["b1"]),
+                     ev["f0"].elapsed_time(ev["f1"]), name,
+                     f"{type(mod).__name__} k{mod.k} s{mod.s} "
+                     f"{w[1]}->{w[0]}"))
+    print(f"conv layers, one step (batch {cfg.batch_size}), ms: backward / "
+          f"forward; total backward {sum(r[0] for r in rows):.3f}, forward "
+          f"{sum(r[1] for r in rows):.3f}")
+    for bwd, fwd, name, kind in sorted(rows, reverse=True):
+        print(f"  {bwd:9.3f} / {fwd:8.3f}  {name:46s} {kind}")
+
+
 def profile_train(blocks, top, steps=5, profiled=3):
     import tempfile
 
@@ -287,6 +332,7 @@ def profile_train(blocks, top, steps=5, profiled=3):
         print(f"  step wall        {med[5]:10.3f} ms "
               f"({cfg.batch_size / med[5] * 1e3:.2f} blocks/s); peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        layer_times(tr, data, cfg)
         print(f"=== training c3p: {profiled} steps under the profiler")
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
