@@ -1233,7 +1233,7 @@ class ReluGates:
     gradient of that element passes on one side and not on the other. At c3p
     on 4 blocks of 64³ that happens a few times a step; on the card it
     moved one leaf's gradient by 4.2e-3 of its largest |g| against an f64
-    run, with every other leaf within 8.3e-4 (PERF.md §6, PR 11). The
+    run, with every other leaf within 8.3e-4 (PERF.md §6, training). The
     parity step replays the card's gates on the CPU, so that the two
     gradients compare arithmetic, and counts the gates the CPU's own
     forward would have set otherwise."""

@@ -5,7 +5,7 @@ Port of ``pcc_geo_cnn_v2_tpu/training.py``: Adam(1e-4) on the model and
 Adam(1e-3) on the factorized prior's quantiles, the focal + mbpov
 objective (plus the aux loss), validation every ``val_every`` steps on
 the RD loss alone, best-val checkpoints, early stop, warm start, resume
-from the latest checkpoint and a ``done`` marker that sweep drivers read.
+from the latest checkpoint and a ``done`` marker that sweep scripts read.
 
 Differences from the JAX package, each forced by the framework:
 
