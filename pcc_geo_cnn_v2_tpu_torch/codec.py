@@ -54,10 +54,26 @@ Blocks whose candidate count overflows the sweep's budget
 (``bucket_k``) are re-swept through the same kernel at ``K = B³``, where
 overflow cannot happen, on the kept canonical x_hat rows — never
 re-decoded.
+
+With ``devices=[...]`` (JAX ``codec.py:199-209``) the chunks of a cloud
+round-robin over one model replica a device, all loaded from the same host
+params: chunk k runs on ``devices[k % n]``. A round of chunks, one a
+device, is dispatched before any of it is fetched, so that the devices
+work at once; the parts are gathered to ``devices[0]``, which runs the
+overflow rerun, the full-cloud metrics and the selection. The decoder
+round-robins its chunks the same way. Octree blocks are independent, so
+no collective is needed, and the streams equal the single-device codec's
+(every chunk is decoded at the same batch width by the same arithmetic).
+
+The codec keeps no per-call state: several threads may encode and decode
+through one instance at once, each under its own CUDA stream
+(``bench.py``); the constant tensors it makes at construction are complete
+before the constructor returns.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import time
@@ -198,7 +214,7 @@ class BlockCodec:
 
     def __init__(self, model, params, block_size=64, n_thresholds=2 ** 8,
                  batch_blocks=32, threads=8, device=None,
-                 sweep_backend="bucket"):
+                 sweep_backend="bucket", devices=None):
         """:param model: a ``CompressionModelV2`` or ``CompressionModelV1``
             (``models.configs.build_model``).
         :param params: flax-layout numpy param tree (as read by
@@ -209,12 +225,22 @@ class BlockCodec:
         :param threads: workers of the host threshold sweep
             (:meth:`compress_blocks`).
         :param sweep_backend: one of :data:`SWEEP_BACKENDS` (see the
-            module docstring)."""
+            module docstring), or ``"auto"``: ``"bucket"`` on a card and
+            ``"xla"`` on the CPU (JAX ``codec.py:216-218``).
+        :param device: the one device of the codec (the card unless
+            ``"cpu"`` is asked for).
+        :param devices: several devices instead of ``device``: chunks
+            round-robin over one model replica each (module docstring)."""
+        if device is not None and devices is not None:
+            raise ValueError("pass device= or devices=, not both")
+        self.devices = [resolve_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
+        if sweep_backend == "auto":
+            sweep_backend = "bucket" if self.device.type == "cuda" else "xla"
         if sweep_backend not in SWEEP_BACKENDS:
             raise ValueError(f"sweep_backend {sweep_backend!r} is not one "
-                             f"of {SWEEP_BACKENDS}")
+                             f"of {SWEEP_BACKENDS + ('auto',)}")
         self.sweep_backend = sweep_backend
-        self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.is_v2 = isinstance(model, CompressionModelV2)
         self.block_size = int(block_size)
@@ -235,23 +261,38 @@ class BlockCodec:
         # the exact full-grid argmin EDT (the JAX codec's knob and default)
         band = os.environ.get("PCC_D2_BAND", "12")
         self.d2_band = None if band.lower() == "none" else int(band)
+        # chunk k runs on self._lanes[k % len(self._lanes)]: this codec,
+        # then a shallow copy a further device, with its own model replica
+        self._lanes = [self]
+        for dev in self.devices[1:]:
+            lane = copy.copy(self)
+            lane.device, lane._lanes = dev, None
+            lane.model = copy.deepcopy(self.model).to(dev)
+            lane.thr_dev = self.thr_dev.to(dev)
+            self._lanes.append(lane)
         self.set_params(params)
         if self.is_v2:
             self.gc_table = build_gaussian_cdf(
                 model.conditional.scale_table, model.conditional.tail_mass)
 
     def set_params(self, params):
-        """Load weights; re-solve the factorized-prior quantiles first
-        (float64 host bisection, so a separate decode process derives
-        identical medians and CDF tables)."""
+        """Load weights into every replica; re-solve the factorized-prior
+        quantiles first (float64 host bisection, so a separate decode
+        process derives identical medians and CDF tables)."""
         tree = dict(params.get("params", params))
         eb = dict(tree["entropy_bottleneck"])
         eb["quantiles"] = refine_factorized_quantiles(eb)["quantiles"]
         tree["entropy_bottleneck"] = eb
-        self.model.load_state_dict(params_from_jax(tree))
-        if self.is_v2:
-            # the fused-conv backend's packed tail weights follow the load
-            self.model.pack_fused_weights()
+        state = params_from_jax(tree)
+        for lane in self._lanes:
+            lane.model.load_state_dict(state)
+            if self.is_v2:
+                # the fused-conv backend's packed tail weights follow the load
+                lane.model.pack_fused_weights()
+            if lane.device.type == "cuda":
+                # weights and thresholds complete before any stream reads
+                # them (the copies ran on this thread's current stream)
+                torch.cuda.synchronize(lane.device)
         self.eb_table = build_factorized_cdf(eb)
 
     # -- shape helpers ----------------------------------------------------
@@ -321,37 +362,54 @@ class BlockCodec:
     # -- encode ------------------------------------------------------------
 
     def _sweep(self, x_hat, pts, occ, opt_metrics, max_deltas, nrm=None):
-        """Threshold sweep of one chunk on the codec's backend: picks
-        [N, M] int32. Bucket-overflowed rows re-run at K = B³. With
-        normals (``nrm``) a non-bucket backend takes the point-based
-        plain sweep for every metric set, as the JAX codec does."""
+        """Threshold sweep of one chunk on the codec's backend: (picks
+        [N, M] int32, overflow [N] bool — the bucket backend's rows to
+        re-sweep, :meth:`_rerun` — or None). With normals (``nrm``) a
+        non-bucket backend takes the point-based plain sweep for every
+        metric set, as the JAX codec does."""
         sel = dict(opt_metrics=opt_metrics, max_deltas=max_deltas)
         if nrm is None and any(m in D2_METRICS for m in opt_metrics):
             raise ValueError("d2 opt metrics need per-point normals")
         if nrm is not None and self.sweep_backend != "bucket":
             return select_thresholds_device_pts(
                 occ, x_hat[..., 0], self.thr_dev, pts, nrm,
-                band=self.d2_band, **sel)
+                band=self.d2_band, **sel), None
         if any(m in D2_METRICS for m in opt_metrics):
             sel["nrm"] = nrm  # K3; d1 metrics alone stay on K1
         elif self.sweep_backend == "pallas":
-            return select_thresholds_d1_pallas(occ, x_hat[..., 0],
-                                               self.thr_dev, pts=pts, **sel)
+            return select_thresholds_d1_pallas(
+                occ, x_hat[..., 0], self.thr_dev, pts=pts, **sel), None
         elif self.sweep_backend == "xla":
-            return select_thresholds_d1_batch(occ, x_hat[..., 0],
-                                              self.thr_dev, **sel)
-        picks, overflow = select_thresholds_d1_bucket(
+            return select_thresholds_d1_batch(
+                occ, x_hat[..., 0], self.thr_dev, **sel), None
+        return select_thresholds_d1_bucket(
             x_hat[..., 0], pts, self.thr_dev, K=self.bucket_k, **sel)
-        rows = torch.nonzero(overflow).flatten()
-        if len(rows):
-            logger.info("bucket sweep overflow: re-sweeping %d block(s) at "
-                        "K = B³", len(rows))
-            if nrm is not None:
-                sel["nrm"] = nrm[rows]
-            picks[rows] = select_thresholds_d1_bucket(
-                x_hat[rows, ..., 0], pts[rows], self.thr_dev,
-                K=self.block_size ** 3, **sel)[0]
-        return picks
+
+    def _rerun(self, res, pts, nrm, opt_metrics, max_deltas):
+        """Re-sweep a chunk's bucket-overflowed rows (``res["overflow"]``,
+        popped) at K = B³ on the kept canonical x_hat rows, on this
+        codec's device, and cut their masks anew; ``res`` may lie on
+        another device (the caller gathers it). Returns ``res``."""
+        overflow = res.pop("overflow")
+        rows = None if overflow is None else torch.nonzero(overflow).flatten()
+        if rows is None or not len(rows):
+            return res
+        logger.info("bucket sweep overflow: re-sweeping %d block(s) at "
+                    "K = B³", len(rows))
+        dev = self.device
+        sel = dict(opt_metrics=opt_metrics, max_deltas=max_deltas)
+        if any(m in D2_METRICS for m in opt_metrics):
+            sel["nrm"] = nrm[rows].to(dev)
+        x_hat = res["x_hat"][rows].to(dev)
+        picks = select_thresholds_d1_bucket(
+            x_hat[..., 0], pts[rows].to(dev), self.thr_dev,
+            K=self.block_size ** 3, **sel)[0]
+        thr = self.thr_dev[picks.long()]
+        rows = rows.to(res["picks"].device)
+        res["picks"][rows] = picks.to(rows.device)
+        for m, mask in enumerate(res["masks"]):
+            mask[rows] = self._masks(x_hat, thr[:, m]).to(rows.device)
+        return res
 
     def _chunk_offsets(self, offsets, lo, hi):
         """(f0, f1, [batch_blocks + 1] device offsets) of blocks lo..hi-1
@@ -411,10 +469,17 @@ class BlockCodec:
             y_idx) on the device; ``occ`` and ``masks[m]`` are packed
             [N, B³/8].
         """
+        res = self._dispatch_chunk(pts, n_valid, opt_metrics, max_deltas,
+                                   nrm)
+        return self._rerun(res, pts, nrm, opt_metrics, max_deltas)
+
+    def _dispatch_chunk(self, pts, n_valid, opt_metrics, max_deltas, nrm):
+        """:meth:`encode_chunk` up to the overflow rerun: ``res`` also
+        holds ``overflow`` (see :meth:`_sweep`)."""
         res = self.canonical_chunk(pts, n_valid)
         x, x_hat = res.pop("x"), res["x_hat"]
-        res["picks"] = self._sweep(x_hat, pts, x[..., 0], opt_metrics,
-                                   max_deltas, nrm)
+        res["picks"], res["overflow"] = self._sweep(
+            x_hat, pts, x[..., 0], opt_metrics, max_deltas, nrm)
         thr = self.thr_dev[res["picks"].long()]
         res["masks"] = [self._masks(x_hat, thr[:, m])
                         for m in range(thr.shape[1])]
@@ -450,13 +515,16 @@ class BlockCodec:
         budget = max(int(2 ** np.ceil(np.log2(max(len(b) for b in blocks)))),
                      64)
         flat, offsets = flatten_blocks(blocks)
-        flat_dev = torch.as_tensor(pack_coords(flat, size), device=self.device)
+        devices = {lane.device for lane in self._lanes}
+        flat_dev = {d: torch.as_tensor(pack_coords(flat, size), device=d)
+                    for d in devices}
         nrm_dev = None
         if with_normals:
             nrm_flat = flatten_blocks(blocks, cols=(3, 4, 5),
                                       dtype=np.float32)[0]
             check_normals(nrm_flat)  # once per cloud, on the host
-            nrm_dev = torch.as_tensor(nrm_flat, device=self.device)
+            nrm_dev = {d: torch.as_tensor(nrm_flat, device=d)
+                       for d in devices}
         opt_names = [f"{m}_{d}" for d in max_deltas for m in opt_metrics]
         n_metrics = len(opt_names)
 
@@ -464,19 +532,29 @@ class BlockCodec:
         host = {k: [] for k in self._sym_keys + ("picks",)}
         occ_chunks, mask_chunks = [], [[] for _ in range(n_metrics)]
         pts_chunks = []
-        for lo, hi in self._chunks(n):
-            pts = self.chunk_points(flat_dev, offsets, lo, hi, budget)
-            nrm = None
-            if with_normals:
-                nrm = self.chunk_normals(nrm_dev, offsets, lo, hi, budget)
-                pts_chunks.append(pts[:hi - lo])
-            res = self.encode_chunk(pts, hi - lo, opt_metrics, max_deltas,
-                                    nrm)
-            for m in range(n_metrics):
-                mask_chunks[m].append(res["masks"][m][:hi - lo])
-            occ_chunks.append(res["occ"][:hi - lo])
-            for key in host:
-                host[key].append(res[key][:hi - lo].cpu().numpy())
+        chunks = self._chunks(n)
+        n_lanes = len(self._lanes)
+        for first in range(0, len(chunks), n_lanes):
+            # a round: one chunk a device, all dispatched before any fetch
+            sent = []
+            for lane, (lo, hi) in zip(self._lanes,
+                                      chunks[first:first + n_lanes]):
+                pts = lane.chunk_points(flat_dev[lane.device], offsets, lo,
+                                        hi, budget)
+                nrm = None if nrm_dev is None else lane.chunk_normals(
+                    nrm_dev[lane.device], offsets, lo, hi, budget)
+                sent.append((lo, hi, pts, nrm, lane._dispatch_chunk(
+                    pts, hi - lo, opt_metrics, max_deltas, nrm)))
+            for lo, hi, pts, nrm, res in sent:
+                res = self._rerun(res, pts, nrm, opt_metrics, max_deltas)
+                for m in range(n_metrics):
+                    mask_chunks[m].append(
+                        res["masks"][m][:hi - lo].to(self.device))
+                occ_chunks.append(res["occ"][:hi - lo].to(self.device))
+                if with_normals:
+                    pts_chunks.append(pts[:hi - lo].to(self.device))
+                for key in host:
+                    host[key].append(res[key][:hi - lo].cpu().numpy())
         out = {k: np.concatenate(v) for k, v in host.items()}
         occ_cat = torch.cat(occ_chunks)
         masks = [torch.cat(c) for c in mask_chunks]
@@ -658,6 +736,15 @@ class BlockCodec:
 
     # -- decode ------------------------------------------------------------
 
+    def _round_robin(self, n, fn):
+        """``fn(lane, lo, hi)`` on every chunk of ``n`` blocks, chunk k on
+        lane k mod lanes, all dispatched before the first is fetched:
+        host (numpy) results in chunk order."""
+        lanes = self._lanes
+        outs = [fn(lanes[k % len(lanes)], lo, hi)
+                for k, (lo, hi) in enumerate(self._chunks(n))]
+        return [o.cpu().numpy() for o in outs]
+
     def decompress_blocks(self, payload):
         """payload: [(strings, threshold_idx), ...] → decoded point blocks.
 
@@ -673,9 +760,9 @@ class BlockCodec:
                                      self._channel_indexes(self.z_shape),
                                      self.eb_table, per_stream=False)
             marks.append(time.time())
-            y_idx = np.concatenate([
-                self._decode_z(self._pad_rows(z_syms[lo:hi], bs))[:hi - lo]
-                .cpu().numpy() for lo, hi in self._chunks(n)])
+            y_idx = np.concatenate(self._round_robin(
+                n, lambda lane, lo, hi: lane._decode_z(
+                    lane._pad_rows(z_syms[lo:hi], bs))[:hi - lo]))
             marks.append(time.time())
             y_syms = rc.decode_batch([p[0][0] for p in payload], y_idx,
                                      self.gc_table, per_stream=True)
@@ -685,14 +772,11 @@ class BlockCodec:
                                      self._channel_indexes(self.y_shape),
                                      self.eb_table, per_stream=False)
         marks.append(time.time())
-        masks = []
-        for lo, hi in self._chunks(n):
-            x_hat = self._decode_y(self._pad_rows(y_syms[lo:hi], bs))
-            masks.append(self._masks(
-                x_hat, self._pad_rows(thr[lo:hi], bs))[:hi - lo].cpu())
+        masks = self._round_robin(n, lambda lane, lo, hi: lane._masks(
+            lane._decode_y(lane._pad_rows(y_syms[lo:hi], bs)),
+            lane._pad_rows(thr[lo:hi], bs))[:hi - lo])
         marks.append(time.time())
-        blocks = unpack_mask_coords(torch.cat(masks).numpy(),
-                                    self.block_size)
+        blocks = unpack_mask_coords(np.concatenate(masks), self.block_size)
         marks.append(time.time())
         logger.info("decompress_blocks(%d blocks): z rANS %.3fs, decode_z "
                     "%.3fs, y rANS %.3fs, decode_y+masks %.3fs, unpack "

@@ -136,12 +136,11 @@ def bucket_colsums(pts, pos, cnt0, npts, size):
     candmin = torch.empty(n_blocks, K, dtype=torch.int64, device=dev)
     work = torch.empty(lib.pcc_bucket_colsums_work_ints(n_blocks, K),
                        dtype=torch.int32, device=dev)
-    err = lib.pcc_bucket_colsums(
-        pts.data_ptr(), pos.data_ptr(), cnt0.data_ptr(), npts.data_ptr(),
-        colsum.data_ptr(), candmin.data_ptr(), work.data_ptr(), n_blocks, P,
-        K, size, plan["threads"], plan["grid"][0], kernels.stream_ptr(dev))
-    kernels.check_launch(err, "bucket_colsums")
-    kernels.launches["bucket_colsums"] += 1
+    kernels.launch(
+        "bucket_colsums", lib.pcc_bucket_colsums, dev, pts.data_ptr(),
+        pos.data_ptr(), cnt0.data_ptr(), npts.data_ptr(), colsum.data_ptr(),
+        candmin.data_ptr(), work.data_ptr(), n_blocks, P, K, size,
+        plan["threads"], plan["grid"][0])
     return colsum, candmin
 
 
@@ -258,14 +257,12 @@ def bucket_colsums_d2(pts, nrm, pos, cnt0, npts, size):
     candplane = torch.empty(n_blocks, K, dtype=torch.float32, device=dev)
     work = torch.empty(lib.pcc_bucket_colsums_d2_work_ints(n_blocks, K),
                        dtype=torch.int32, device=dev)
-    err = lib.pcc_bucket_colsums_d2(
-        pts.data_ptr(), nrm.data_ptr(), pos.data_ptr(), cnt0.data_ptr(),
-        npts.data_ptr(), colsum.data_ptr(), candmin.data_ptr(),
-        colplane.data_ptr(), candplane.data_ptr(), work.data_ptr(),
-        n_blocks, P, K, size, plan["threads"], plan["grid"][0],
-        kernels.stream_ptr(dev))
-    kernels.check_launch(err, "bucket_colsums_d2")
-    kernels.launches["bucket_colsums_d2"] += 1
+    kernels.launch(
+        "bucket_colsums_d2", lib.pcc_bucket_colsums_d2, dev, pts.data_ptr(),
+        nrm.data_ptr(), pos.data_ptr(), cnt0.data_ptr(), npts.data_ptr(),
+        colsum.data_ptr(), candmin.data_ptr(), colplane.data_ptr(),
+        candplane.data_ptr(), work.data_ptr(), n_blocks, P, K, size,
+        plan["threads"], plan["grid"][0])
     return colsum, candmin, colplane, candplane
 
 

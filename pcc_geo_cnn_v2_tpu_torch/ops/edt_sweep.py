@@ -173,7 +173,7 @@ def spiral_table(size):
 
 @functools.lru_cache(maxsize=8)
 def _spiral_on(size, device):
-    return torch.as_tensor(spiral_table(size), device=device)
+    return kernels.device_table(spiral_table(size), device)
 
 
 def edt_sweep_sums(x_hat, occ, dt_orig, thresholds, t_end=None):
@@ -208,16 +208,14 @@ def edt_sweep_sums(x_hat, occ, dt_orig, thresholds, t_end=None):
     cnt, ba, ab = (torch.empty(n, T, dtype=torch.float32, device=dev)
                    for _ in range(3))
     lib = kernels.load("edt_sweep")
-    err = lib.pcc_edt_sweep(
-        x_hat.data_ptr(), occ_u8.data_ptr(), dt_orig.data_ptr(),
-        thresholds.data_ptr(), t_end.data_ptr(), bins.data_ptr(),
-        hcnt.data_ptr(), hba.data_ptr(), seg_max.data_ptr(),
-        occ_list.data_ptr(), occ_cnt.data_ptr(), occ_off.data_ptr(),
-        te.data_ptr(), items.data_ptr(), _spiral_on(size, dev).data_ptr(),
-        cnt.data_ptr(), ba.data_ptr(), ab.data_ptr(), INF, n, size, T, seg,
-        kernels.stream_ptr(dev))
-    kernels.check_launch(err, "edt_sweep")
-    kernels.launches["edt_sweep"] += 1
+    kernels.launch(
+        "edt_sweep", lib.pcc_edt_sweep, dev, x_hat.data_ptr(),
+        occ_u8.data_ptr(), dt_orig.data_ptr(), thresholds.data_ptr(),
+        t_end.data_ptr(), bins.data_ptr(), hcnt.data_ptr(), hba.data_ptr(),
+        seg_max.data_ptr(), occ_list.data_ptr(), occ_cnt.data_ptr(),
+        occ_off.data_ptr(), te.data_ptr(), items.data_ptr(),
+        _spiral_on(size, dev).data_ptr(), cnt.data_ptr(), ba.data_ptr(),
+        ab.data_ptr(), INF, n, size, T, seg)
     return ab, ba, cnt
 
 

@@ -265,18 +265,16 @@ def _launch(name, x, w1, b1, w2, b2, spatial, channels, residual, dtype,
         raise ValueError(f"{name}: tensors must be 16-byte aligned")
     lib = kernels.load(name)
     _check_geometry()
-    head = (xv.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), xv.shape[0], spatial, channels)
-    tail = (int(residual), int(dtype == torch.bfloat16),
-            kernels.stream_ptr(xv.device))
-    if slab is None:
-        plan = tail_plan(spatial, channels, xv.shape[0], dtype,
-                         sms=_sm_count(xv.device))
-        err = lib.pcc_fused_tail(*head, plan["depth_chunk"], *tail)
+    if slab is None:  # K4a: the depth range of a CTA from the plan
+        entry, depth = lib.pcc_fused_tail, tail_plan(
+            spatial, channels, xv.shape[0], dtype,
+            sms=_sm_count(xv.device))["depth_chunk"]
     else:
-        err = lib.pcc_fused_tail_slab(*head, slab, *tail)
-    kernels.check_launch(err, name)
-    kernels.launches[name] += 1
+        entry, depth = lib.pcc_fused_tail_slab, slab
+    kernels.launch(name, entry, xv.device, xv.data_ptr(), w1.data_ptr(),
+                   b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+                   xv.shape[0], spatial, channels, depth, int(residual),
+                   int(dtype == torch.bfloat16))
     return out.reshape(x.shape)
 
 

@@ -212,7 +212,7 @@ def halo_spiral_table(halo):
 
 @functools.lru_cache(maxsize=8)
 def _spiral_on(halo, device):
-    return torch.as_tensor(halo_spiral_table(halo), device=device)
+    return kernels.device_table(halo_spiral_table(halo), device)
 
 
 def check_k2_limits(size, halo):
@@ -298,10 +298,8 @@ def halo_d1_packed(a_ext, b_ext, idx, *, size, halo, batch=64):
     stats = torch.empty(2, 3, n, dtype=torch.int64, device=dev)
     unres = torch.empty(2, n, nbytes, dtype=torch.uint8, device=dev)
     lib = kernels.load("halo_edt")
-    err = lib.pcc_halo_edt(
-        a_ext.data_ptr(), b_ext.data_ptr(), rows, idx.data_ptr(),
-        spiral.data_ptr(), len(spiral), part.data_ptr(), stats.data_ptr(),
-        unres.data_ptr(), n, size, halo, kernels.stream_ptr(dev))
-    kernels.check_launch(err, "halo_edt")
-    kernels.launches["halo_edt"] += 1
+    kernels.launch(
+        "halo_edt", lib.pcc_halo_edt, dev, a_ext.data_ptr(), b_ext.data_ptr(),
+        rows, idx.data_ptr(), spiral.data_ptr(), len(spiral), part.data_ptr(),
+        stats.data_ptr(), unres.data_ptr(), n, size, halo)
     return stats, unres

@@ -8,8 +8,10 @@ use, or all at once — one ``nvcc`` per source, started together — through
 :func:`build_all`.
 
 ``launches`` counts kernel launches per wrapper; a wrapper adds one where
-it launches its kernel and nowhere else, so a run can show that its main
-path went through the kernels.
+it launches its kernel (:func:`launch`) and nowhere else, so a run can show
+that its main path went through the kernels. Wrappers are called from
+several threads at once (clouds in flight, ``bench.py``), so the counts
+change under a lock.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import threading
 import time
 from pathlib import Path
 
@@ -24,8 +27,9 @@ import torch
 
 from pcc_geo_cnn_v2_tpu_torch import native
 
-__all__ = ["KERNELS", "launches", "reset_launches", "build_all", "load",
-           "check_cuda_tensor", "check_launch", "stream_ptr"]
+__all__ = ["KERNELS", "launches", "reset_launches", "count", "build_all",
+           "load", "check_cuda_tensor", "check_launch", "stream_ptr",
+           "launch", "device_table"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
@@ -58,11 +62,20 @@ KERNELS = {
 }
 
 launches = {name: 0 for name in KERNELS}
+_launches_lock = threading.Lock()
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    with _launches_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def count(name):
+    """Add one launch of kernel ``name``: a read-modify-write of a dict
+    that several threads share, so under a lock."""
+    with _launches_lock:
+        launches[name] += 1
 
 
 def _nvcc_cmd():
@@ -141,3 +154,25 @@ def check_launch(err, name):
     """Raise on a non-zero ``cudaGetLastError`` returned by a C entry."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def launch(name, entry, device, *args):
+    """Launch kernel ``name`` through its C entry ``entry(*args, stream)``
+    on ``device``'s current stream of the calling thread, with ``device``
+    made the current device around the call (a C entry launches on the
+    calling thread's current device, which need not be the tensors'),
+    raise on its error and count it."""
+    with torch.cuda.device(device):
+        err = entry(*args, stream_ptr(device))
+    check_launch(err, name)
+    count(name)
+
+
+def device_table(array, device):
+    """A constant host table copied to ``device``, the copy complete when
+    this returns: the tensor is cached and read from other threads'
+    streams, which do not wait for the stream that made it."""
+    t = torch.as_tensor(array, device=device)
+    if t.is_cuda:
+        torch.cuda.current_stream(device).synchronize()
+    return t

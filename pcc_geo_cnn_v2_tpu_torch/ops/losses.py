@@ -7,6 +7,15 @@ bounds [1e-3, 0.999], and the bits-per-occupied-voxel normalization
 The clip is ``minimum(maximum(p, lo), hi)``, as ``jnp.clip`` is: at a value
 equal to a bound both share the gradient (0.5 each), where
 ``torch.clamp`` passes all of it.
+
+Data-parallel training (``training.Trainer(group=...)``) needs the global
+loss of a batch split over ranks, and parts of it are no mean of per-rank
+losses: mbpov is a ratio of global sums, and the classification logs are
+ratios of global counts. So :func:`rd_loss` takes the global occupied
+count as an argument (each rank's loss is then its share of the global
+one, and the shares sum to it), and :func:`binary_classification_counts`
+gives the counts that the ranks sum before
+:func:`binary_classification_from_counts`.
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ import math
 import torch
 
 __all__ = ["focal_loss", "bits_per_occupied_voxel",
+           "binary_classification_counts", "binary_classification_from_counts",
            "binary_classification_metrics", "rd_loss"]
 
 
@@ -39,15 +49,26 @@ def bits_per_occupied_voxel(likelihoods, num_occupied):
 
 
 @torch.no_grad()
+def binary_classification_counts(x, x_tilde):
+    """[tp, tn, fp, fn] of rounded occupancy, one tensor."""
+    xq = torch.round(torch.clamp(x, 0, 1))
+    xtq = torch.round(torch.clamp(x_tilde, 0, 1))
+    return torch.stack([torch.sum(xtq * xq), torch.sum((1 - xtq) * (1 - xq)),
+                        torch.sum(xtq * (1 - xq)), torch.sum((1 - xtq) * xq)])
+
+
+@torch.no_grad()
 def binary_classification_metrics(x, x_tilde):
     """Precision / recall / accuracy / specificity / F1 on rounded
     occupancy (reference ``model_types.py:90-105``)."""
-    xq = torch.round(torch.clamp(x, 0, 1))
-    xtq = torch.round(torch.clamp(x_tilde, 0, 1))
-    tp = torch.sum(xtq * xq)
-    tn = torch.sum((1 - xtq) * (1 - xq))
-    fp = torch.sum(xtq * (1 - xq))
-    fn = torch.sum((1 - xtq) * xq)
+    return binary_classification_from_counts(
+        binary_classification_counts(x, x_tilde))
+
+
+def binary_classification_from_counts(counts):
+    """The metrics of :func:`binary_classification_metrics` from its
+    counts [tp, tn, fp, fn]."""
+    tp, tn, fp, fn = counts
     precision = tp / (tp + fp)
     recall = tp / (tp + fn)
     return {
@@ -59,13 +80,19 @@ def binary_classification_metrics(x, x_tilde):
     }
 
 
-def rd_loss(x, x_tilde, likelihoods_list, lmbda, gamma=2.0, alpha=0.9):
+def rd_loss(x, x_tilde, likelihoods_list, lmbda, gamma=2.0, alpha=0.9,
+            num_occupied=None):
     """λ·focal + Σ mbpov — the reference's training objective.
 
     :param likelihoods_list: [y_likelihoods] (v1) or [y, z] (v2).
+    :param num_occupied: the mbpov denominator Σx; by default this batch's.
+        Given the global batch's count, the loss is this shard's share of
+        the global loss (its focal sum and its Σ log p over the global
+        denominator), and the shares of all shards sum to it.
     :return: (loss, dict of scalar tensors for logging)
     """
-    num_occupied = torch.sum(x)
+    if num_occupied is None:
+        num_occupied = torch.sum(x)
     fl = focal_loss(x, x_tilde, gamma=gamma, alpha=alpha)
     mbpovs = [bits_per_occupied_voxel(p, num_occupied)
               for p in likelihoods_list]

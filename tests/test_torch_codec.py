@@ -320,7 +320,7 @@ def test_sweep_backends_give_identical_d1_streams(setup, backend):
 def test_unknown_sweep_backend_raises(setup):
     with pytest.raises(ValueError, match="sweep_backend"):
         BlockCodec(build_model(CFG), setup["params"], block_size=B,
-                   device="cpu", sweep_backend="auto")
+                   device="cpu", sweep_backend="tpu")
 
 
 def test_cli_roundtrip_with_normals(tmp_path, setup, setup_normals):

@@ -124,6 +124,30 @@ def test_trainer_without_device_raises_on_cuda_less_host(tmp_path):
     assert not list(tmp_path.iterdir())  # nothing written before the raise
 
 
+def test_bench_without_device_raises_on_cuda_less_host():
+    _no_cuda()
+    from pcc_geo_cnn_v2_tpu_torch import bench
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main(["--devices", "2"])
+
+
+def test_bench_module_exits_non_zero_and_prints_no_result_without_cuda():
+    """``python -m pcc_geo_cnn_v2_tpu_torch.bench`` on a host without a
+    card: a non-zero exit, nothing on standard output."""
+    import subprocess
+    import sys
+
+    _no_cuda()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pcc_geo_cnn_v2_tpu_torch.bench"], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and proc.stdout == ""
+    assert "no CUDA device" in proc.stderr
+
+
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     _no_cuda()
     from pcc_geo_cnn_v2_tpu_torch import native
