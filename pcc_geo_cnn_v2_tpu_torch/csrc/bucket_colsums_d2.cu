@@ -555,19 +555,15 @@ int pcc_bucket_colsums_d2(const int32_t* pts, const float* nrm,
     if (N <= 0 || K <= 0) return (int)cudaGetLastError();
     if (threads != NT || (int64_t)tiles * NT < P)
         return (int)cudaErrorInvalidValue;
-    static bool configured = false;  // above 48 KB only when asked for
-    if (!configured) {
-        cudaError_t e = cudaFuncSetAttribute(
-            bucket_d2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            SMEM);
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(
-                bucket_d2_kernel,
-                cudaFuncAttributePreferredSharedMemoryCarveout,
-                cudaSharedmemCarveoutMaxShared);
-        if (e != cudaSuccess) return (int)e;
-        configured = true;
-    }
+    // above 48 KB only when asked for; the attribute belongs to the
+    // current device, so it is set on every call (K2 and K5 do the same)
+    cudaError_t e = cudaFuncSetAttribute(
+        bucket_d2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            bucket_d2_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+            cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
     cudaStream_t st = (cudaStream_t)stream;
     const int Kp = round32(K), nseg = (K + TK - 1) / TK;
     const int64_t nk = (int64_t)N * Kp;
