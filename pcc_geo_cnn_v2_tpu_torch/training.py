@@ -23,7 +23,23 @@ Differences from the JAX package, each forced by the framework:
   in f32.
 - :meth:`Trainer.fit_blocks` keeps the dataset on the device and samples
   batches with replacement, as the JAX scan loop, one step a Python
-  iteration. The data-parallel mesh is not ported.
+  iteration.
+- Data parallelism (JAX: ``Trainer(mesh=)``, the batch sharded over a
+  device mesh in one process) is one process a rank in a
+  ``torch.distributed`` group (``Trainer(group=)``, ``parallel/mesh.py``).
+  Each rank takes its rows of every global batch and of the global batch's
+  noise, so a step does not depend on the world size. The loss JAX
+  differentiates is the global batch's, and parts of it are no mean of
+  per-rank losses (mbpov is a ratio of global sums), so averaging per-rank
+  losses as ``DistributedDataParallel`` does would give another gradient:
+  the occupied count is summed over the ranks before the loss, each rank's
+  loss is its share of the global one (the aux loss, which depends on the
+  parameters only, on rank 0 alone), and the gradients are summed over the
+  ranks. Every rank then takes the same Adam step on the same parameters
+  (broadcast from rank 0 at the start). The logs are the global batch's
+  (numerators summed over the ranks). Only rank 0 writes checkpoints, the
+  log and the ``done`` marker. As in JAX, :meth:`Trainer.fit_blocks` stays
+  single-device.
 """
 
 from __future__ import annotations
@@ -39,14 +55,20 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from pcc_geo_cnn_v2_tpu_torch.codec import deterministic_convs, resolve_device
 from pcc_geo_cnn_v2_tpu_torch.models.codec_models import CompressionModelV2
 from pcc_geo_cnn_v2_tpu_torch.models.entropy import FactorizedPrior
 from pcc_geo_cnn_v2_tpu_torch.models.transforms import Conv, ConvTranspose
-from pcc_geo_cnn_v2_tpu_torch.ops.losses import rd_loss
+from pcc_geo_cnn_v2_tpu_torch.ops.losses import (
+    binary_classification_counts,
+    binary_classification_from_counts,
+    rd_loss,
+)
 from pcc_geo_cnn_v2_tpu_torch.ops.voxel import voxelize
+from pcc_geo_cnn_v2_tpu_torch.parallel.mesh import shard_rows
 from pcc_geo_cnn_v2_tpu_torch.weights import (
     load_asset_tree,
     params_from_jax,
@@ -59,6 +81,8 @@ __all__ = ["TrainConfig", "Trainer", "init_params", "make_optimizer",
            "make_loss_fn", "draw_noise", "load_params", "read_checkpoint"]
 
 _CKPT = re.compile(r"ckpt_(\d+)")
+# logs that are sums over a batch's rows (each rank logs its share)
+_SUMMED_LOGS = ("loss", "focal_loss", "mbpov", "mbpov_y", "mbpov_z")
 
 
 @dataclasses.dataclass
@@ -130,10 +154,17 @@ def draw_noise(model, n, block_size, generator):
             - 0.5 for k, s in shapes.items()}
 
 
-def make_loss_fn(model, config):
+def make_loss_fn(model, config, group=None):
     """``(points [N, P, 3] int, noise) -> (loss + aux, logs)``: voxelize,
     the training graph, the RD loss, the aux loss (JAX
-    ``training.py:101-120``). ``logs["loss"]`` is the RD loss alone."""
+    ``training.py:101-120``). ``logs["loss"]`` is the RD loss alone.
+
+    With a data-parallel ``group``, ``points`` and ``noise`` are this
+    rank's rows of a global batch: the occupied count is summed over the
+    ranks first, and the loss returned is this rank's share of the global
+    loss (its focal sum, its Σ log p over the global count, and the aux
+    loss on rank 0 only), so that the ranks' gradients sum to the global
+    batch's. The logs are the global batch's."""
     is_v2 = isinstance(model, CompressionModelV2)
 
     def loss_fn(points, noise):
@@ -142,13 +173,35 @@ def make_loss_fn(model, config):
         liks = [out["y_likelihoods"]]
         if is_v2:
             liks.append(out["z_likelihoods"])
+        num_occupied = None
+        if group is not None:
+            num_occupied = torch.sum(x)
+            dist.all_reduce(num_occupied, group=group)
         loss, logs = rd_loss(x, out["x_tilde"], liks, config.lmbda,
-                             gamma=config.gamma, alpha=config.alpha)
+                             gamma=config.gamma, alpha=config.alpha,
+                             num_occupied=num_occupied)
         aux = model.aux_loss()
         logs["aux_loss"] = aux
-        return loss + aux, {k: v.detach() for k, v in logs.items()}
+        logs = {k: v.detach() for k, v in logs.items()}
+        if group is None:
+            return loss + aux, logs
+        logs.update(_global_logs(
+            logs, binary_classification_counts(x, out["x_tilde"]), group))
+        return (loss + aux if dist.get_rank(group) == 0 else loss), logs
 
     return loss_fn
+
+
+def _global_logs(logs, counts, group):
+    """The global batch's logs from the ranks' shares: the summed logs and
+    the classification counts added over the ranks (in f64), the
+    classification ratios taken from the sums."""
+    keys = [k for k in _SUMMED_LOGS if k in logs]
+    flat = torch.cat([torch.stack([logs[k] for k in keys]), counts]).double()
+    dist.all_reduce(flat, group=group)
+    out = {k: v.float() for k, v in zip(keys, flat)}
+    out.update(binary_classification_from_counts(flat[len(keys):].float()))
+    return out
 
 
 def _checkpoints(directory):
@@ -178,26 +231,34 @@ def load_params(path):
 
 
 class Trainer:
-    """Runs the training protocol over block datasets on one device.
+    """Runs the training protocol over block datasets on one device, or as
+    one rank of a data-parallel group (module docstring).
 
     :param model: a port model (``models.configs.build_model``); its
         parameters are initialised here (:func:`init_params` from ``seed``),
         then restored from the latest checkpoint of ``checkpoint_dir`` or,
         when there is none, taken from ``warm_start`` (a training directory
         or a ``.msgpack.gz`` asset; params only).
-    :param device: the card unless ``"cpu"`` is asked for.
+    :param device: the card unless ``"cpu"`` is asked for (a rank's own,
+        ``parallel.mesh.process_group``).
+    :param group: a ``torch.distributed`` process group of data-parallel
+        ranks, each running this trainer with the same arguments and
+        batches: :meth:`fit` then trains on the global batches.
     """
 
     def __init__(self, model, config: TrainConfig, checkpoint_dir, seed=42,
-                 warm_start=None, device=None):
+                 warm_start=None, device=None, group=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             deterministic_convs()
         self.config, self.seed = config, seed
+        self.group = group
+        self.rank = 0 if group is None else dist.get_rank(group)
+        self.world = 1 if group is None else dist.get_world_size(group)
         self.model = init_params(model, torch.Generator().manual_seed(seed))
         self.model.to(self.device).train()
         self.opt = make_optimizer(self.model, config.lr, config.aux_lr)
-        self.loss_fn = make_loss_fn(self.model, config)
+        self.loss_fn = make_loss_fn(self.model, config, group)
         self.dir = Path(checkpoint_dir).resolve()
         self.dir.mkdir(parents=True, exist_ok=True)
         self.log_path = self.dir / "train_log.jsonl"
@@ -210,6 +271,11 @@ class Trainer:
             self.model.load_state_dict(params_from_jax(
                 load_params(warm_start)))
             logger.info("warm start from %s", warm_start)
+        if group is not None:
+            with torch.no_grad():
+                src = dist.get_global_rank(group, 0)
+                for t in self.model.state_dict().values():
+                    dist.broadcast(t, src=src, group=group)
 
     # -- checkpoint protocol ------------------------------------------------
 
@@ -220,8 +286,11 @@ class Trainer:
 
     def save(self, step):
         """Write ``ckpt_<step>`` (through a temporary directory, renamed
-        when complete) and keep the newest ``keep_checkpoints``."""
+        when complete) and keep the newest ``keep_checkpoints``; in a group
+        rank 0 alone writes."""
         path = self.dir / f"ckpt_{step}"
+        if self.rank:
+            return path
         tmp = self.dir / f"ckpt_{step}.tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
@@ -252,19 +321,47 @@ class Trainer:
         seed = (int(state[0]) << 31) ^ int(state[1])
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def _update(self, points, generator):
-        noise = draw_noise(self.model, len(points), self.config.block_size,
-                           generator)
+    def _update(self, points, noise):
+        """One Adam step on this rank's rows ``points`` and ``noise``."""
         self.opt.zero_grad(set_to_none=True)
         total, logs = self.loss_fn(points, noise)
         total.backward()
+        if self.group is not None:
+            self._sum_gradients()
         self.opt.step()
         return logs
 
+    def _sum_gradients(self):
+        """All-reduce the gradients as a sum, in one flat buffer: the
+        ranks' losses are shares of the global loss, so the sum is the
+        global batch's gradient, the same on every rank. A parameter
+        without a gradient on this rank (the quantiles, which only the aux
+        loss of rank 0 moves) adds zeros."""
+        params = list(self.model.parameters())
+        flat = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad)
+                          .reshape(-1) for p in params])
+        dist.all_reduce(flat, group=self.group)
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
+
+    def _rows(self, batch):
+        """This rank's rows of a global batch (all of it without a
+        group); a batch the world size does not divide raises."""
+        if self.group is None:
+            return batch
+        return shard_rows(batch, self.rank, self.world)
+
+    def _global_noise(self, n, generator):
+        """This rank's rows of the noise of an ``n``-block global batch."""
+        return {k: self._rows(v) for k, v in draw_noise(
+            self.model, n, self.config.block_size, generator).items()}
+
     def step_batch(self, points, step):
-        """One update on a host batch ``[N, P, 3]`` (the feed loop)."""
-        return self._update(torch.as_tensor(points, device=self.device),
-                            self._generator(0, step))
+        """One update on a host batch ``[N, P, 3]`` (the feed loop); in a
+        group, the global batch, of which this rank takes its rows."""
+        noise = self._global_noise(len(points), self._generator(0, step))
+        return self._update(torch.as_tensor(self._rows(points),
+                                            device=self.device), noise)
 
     def step_blocks(self, data, step):
         """One update on ``batch_size`` blocks drawn with replacement from
@@ -272,16 +369,16 @@ class Trainer:
         g = self._generator(0, step)
         idx = torch.randint(0, len(data), (self.config.batch_size,),
                             generator=g, device=self.device)
-        return self._update(data[idx].to(torch.int32), g)
+        return self._update(data[idx].to(torch.int32),
+                            self._global_noise(len(idx), g))
 
     @torch.no_grad()
     def eval_batch(self, points, step, i):
-        """Logs of the loss on a host batch, no update (``logs["loss"]`` is
-        the RD loss without aux)."""
-        pts = torch.as_tensor(points, device=self.device)
-        return self.loss_fn(pts, draw_noise(
-            self.model, len(pts), self.config.block_size,
-            self._generator(1, step, i)))[1]
+        """Logs of the loss on a host batch (in a group, the global batch),
+        no update (``logs["loss"]`` is the RD loss without aux)."""
+        noise = self._global_noise(len(points), self._generator(1, step, i))
+        return self.loss_fn(torch.as_tensor(self._rows(points),
+                                            device=self.device), noise)[1]
 
     @torch.no_grad()
     def val_loss_blocks(self, data, step):
@@ -311,6 +408,8 @@ class Trainer:
     # -- loops ----------------------------------------------------------------
 
     def _log(self, step, split, logs, extra=None):
+        if self.rank:
+            return
         rec = {"step": step, "split": split,
                **{k: float(v) for k, v in logs.items()}}
         if extra:
@@ -342,18 +441,23 @@ class Trainer:
         return False
 
     def _finish(self, step, best):
-        if self.latest_checkpoint(self.dir) is None:
-            self.save(step)
-        (self.dir / "done").touch()
+        if self.rank == 0:
+            if self.latest_checkpoint(self.dir) is None:
+                self.save(step)
+            (self.dir / "done").touch()
+        if self.group is not None:
+            dist.barrier(group=self.group)  # the files exist on every return
         return best[0]
 
     def fit(self, train_batches, val_batches_fn):
         """Train until max_steps or early stop on host-fed batches; returns
         the best val loss (None when the done marker exists).
 
-        :param train_batches: infinite iterator of [N, P, 3] int batches.
-        :param val_batches_fn: callable returning an iterator of val
+        :param train_batches: infinite iterator of [N, P, 3] int batches;
+            in a group every rank's iterator yields the same global
             batches.
+        :param val_batches_fn: callable returning an iterator of val
+            batches (global batches in a group).
         """
         cfg = self.config
         if (self.dir / "done").exists():
@@ -382,7 +486,11 @@ class Trainer:
         """The same protocol over device-resident block datasets
         (``utils.data.BlockDataset``): packed once, uploaded as int8 /
         int16, batches sampled on the device with replacement (JAX
-        ``fit_blocks``; not step-for-step comparable with :meth:`fit`)."""
+        ``fit_blocks``; not step-for-step comparable with :meth:`fit`).
+        Single-device, as in JAX."""
+        if self.group is not None:
+            raise ValueError("fit_blocks is single-device; use fit() in a "
+                             "data-parallel group")
         cfg = self.config
         if (self.dir / "done").exists():
             logger.info("done marker exists, skipping training")
