@@ -136,11 +136,35 @@ exit):
    ``cli.common.load_params``, through the d1 path on the whole cloud:
    bit-exact, encoder D1 PSNR equal to the host KD-tree's, K1 and K2
    launched.
+16. The benchmark driver. K1 first against its plain version at the
+   bench's first 128-block chunk (bf16 c3p on the same cloud: K1 ran at 32
+   blocks a chunk before). Then ``python -m pcc_geo_cnn_v2_tpu_torch.bench``
+   as a subprocess at its defaults (8 held-out clouds, c3p in bf16, batch
+   128, the bucket sweep, d1) with ``BENCH_PIPELINE=3`` and ``=1``: each
+   run's JSON line, encode / decode seconds, bpp, peak memory and launches
+   (K1 and K2 only) printed; the two runs' streams equal byte for byte (the
+   bench's SHA-256 of every stream). Then 2 clouds with
+   ``BENCH_OPT_METRICS=d1_mse,d2_mse`` (K3 and K2, not K1) and with
+   ``BENCH_CONV_BACKEND=pallas`` (K4a, K4b, K1, K2). Every bench run
+   decodes every group bit-exactly or fails.
+17. Blocks round-robin over devices: ``BlockCodec(devices=...)`` over two
+   c3p replicas on the card (or over the cards, where there are several) on
+   the cloud of phase 6: stream bytes, decoded points and launches equal
+   phase 6's.
+18. Data-parallel training (``Trainer(group=...)``, ``parallel/mesh.py``),
+   c3p at full width and batch 32: at world 1 on ``nccl``, one step under
+   ``torch.use_deterministic_algorithms(True)`` bit-equal (parameters and
+   logs) to the trainer without a group, no kernel launched; then 2
+   processes on the one card over ``gloo`` with CUDA tensors (NCCL takes one
+   rank a card), 3 steps at the global batch 32: the ranks' parameters
+   bit-identical after every step, each loss within 1e-4 relative of the
+   single process's.
 
-The launch counts are set to 0 just before each path and read just after.
-Phases 12-15 print their seconds.
-Prints a ``kernels`` JSON line (per kernel: launches on its path, max
-error against the plain version, its median time (K1, K2, K3, K4 and K5 per
+The launch counts are set to 0 just before each path and read just after
+(for the bench, inside its process, around its timed window). Phases 12-18
+print their seconds.
+Prints a ``kernels`` JSON line (per kernel: launches on its path and on
+every path, max error against the plain version, its median time (K1, K2, K3, K4 and K5 per
 call in bursts of four calls, so that the wrapper's host time overlaps
 the kernels), the plain time, the least time the card could take for the
 same work and the share of it reached (K1 and K3 at the chunk and the
@@ -751,9 +775,10 @@ def sweep_kernel_ms(codec, pts, nrm, x_hat, K):
                                                   BLOCK), reps=3, burst=4))
 
 
-def check_k5(codec, pts, x_hat):
+def check_k5(codec, pts, x_hat, bucket):
     """Phase 5: K5 vs its plain version on one canonical chunk, and its
-    picks vs the bucket backend's."""
+    picks vs the bucket backend's (``bucket``: the codec's picks of the
+    chunk, with its rerun at K = B³ for overflowed rows)."""
     import torch
 
     from pcc_geo_cnn_v2_tpu_torch.ops import edt_sweep as es
@@ -779,10 +804,8 @@ def check_k5(codec, pts, x_hat):
     err = max(float((g - r).abs().max())
               for res in (main, alone) for g, r in zip(res, ref))
     assert err == 0, f"K5 disagrees with its plain version (max err {err})"
-    # picks: the exact sweep against the bucket backend (K1, with its
-    # rerun at K = B³ for overflowed rows)
+    # picks: the exact sweep against the bucket backend
     picks = select_thresholds_d1_pallas(occ, xh, thr, pts=pts)
-    bucket = codec._sweep(x_hat, pts, occ, ("d1_mse",), (np.inf,))
     assert torch.equal(picks, bucket), "K5 picks differ from the bucket's"
     call = lambda: es.edt_sweep_sums(xh, occ, dt, thr, t_end)
     n_launches = cuda_launches(call, "edt_sweep")
@@ -1466,6 +1489,246 @@ def check_training(device, blocks, params, drive, expect_launches, points,
     return counts
 
 
+# phase 16: the benchmark driver (pcc_geo_cnn_v2_tpu_torch/bench.py) as a
+# subprocess, at its defaults (8 clouds, bf16, batch 128, the bucket sweep,
+# d1) with BENCH_PIPELINE 3 and 1, then on 2 clouds with the d2 group (K3)
+# and with the fused-conv backend (K4a / K4b)
+BENCH_TIMEOUT_S = 600
+BENCH_RUNS = (
+    ("bench", {"BENCH_PIPELINE": "3"}),
+    ("bench_pipeline1", {"BENCH_PIPELINE": "1"}),
+    ("bench_d2", {"BENCH_NUM_CLOUDS": "2",
+                  "BENCH_OPT_METRICS": "d1_mse,d2_mse"}),
+    ("bench_pallas", {"BENCH_NUM_CLOUDS": "2",
+                      "BENCH_CONV_BACKEND": "pallas"}),
+)
+# phase 18: data-parallel training, c3p at batch BATCH: nccl at world 1
+# against the trainer without a group (bit-equal), then DP_WORLD ranks on
+# the one card over gloo for DP_STEPS steps (parameters bit-identical across
+# the ranks, the loss within DP_LOSS_REL of the single-process step: the
+# ranks add their shares of it in another order)
+DP_WORLD, DP_STEPS, DP_LOSS_REL, DP_TIMEOUT_S = 2, 3, 1e-4, 300
+
+
+def run_bench(name, env_extra):
+    """One ``python -m pcc_geo_cnn_v2_tpu_torch.bench`` run: (its JSON line,
+    its summary dict). Fails the phase on a non-zero exit."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(env_extra)
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pcc_geo_cnn_v2_tpu_torch.bench"], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    if proc.returncode != 0:
+        log(proc.stderr[-6000:])
+        raise RuntimeError(f"{name}: the bench exited with {proc.returncode}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    summary = json.loads(next(
+        ln for ln in proc.stderr.splitlines()
+        if ln.startswith("bench summary: ")).split(": ", 1)[1])
+    keep = [ln for ln in proc.stderr.splitlines()
+            if ln.startswith(("warmup done", "encode ", "decode ", "enc-side",
+                              "c3p ", "8 clouds", "2 clouds"))]
+    log(f"{name} ({' '.join(f'{k}={v}' for k, v in env_extra.items())}), "
+        f"{time.time() - t0:.1f} s: {json.dumps(line)}")
+    for ln in keep:
+        log(f"  {ln}")
+    log(f"  encode {summary['t_enc']:.3f} s, decode {summary['t_dec']:.3f} "
+        f"s, {summary['blocks']} blocks, {summary['value']:.2f} blocks/s, "
+        f"{summary['bpp']:.4f} bpp, {summary['decoded_points']} decoded "
+        f"points, peak memory {summary['peak_bytes'] / 2**30:.3f} GiB; "
+        f"launches {summary['launches']}")
+    assert set(line) == {"metric", "value", "unit", "vs_baseline"}, line
+    assert line["metric"] == "blocks64_enc_dec_per_sec_per_chip", line
+    assert line["value"] > 0 and summary["decoded_points"] > 0, summary
+    return line, summary
+
+
+def check_bench(codec128, flat_dev, offsets, budget, expect_launches):
+    """Phase 16: K1 at the bench's first 128-block chunk against its plain
+    version, then the bench runs of ``BENCH_RUNS``. Returns (the K1 check,
+    {run: launches}, {run: summary})."""
+    import torch
+
+    t_phase = time.time()
+    pts = codec128.chunk_points(flat_dev, offsets, 0, codec128.batch_blocks,
+                                budget)
+    x_hat = codec128.encode_chunk(pts, codec128.batch_blocks)["x_hat"]
+    k1_128 = check_k1(codec128, pts, x_hat, codec128.bucket_k, reps=5,
+                      plain_reps=1)
+    del pts, x_hat
+    torch.cuda.empty_cache()
+    counts, summaries = {}, {}
+    for name, env_extra in BENCH_RUNS:
+        _, summaries[name] = run_bench(name, env_extra)
+        counts[name] = summaries[name]["launches"]
+    k4 = ("fused_tail", "fused_tail_slab")
+    for name in ("bench", "bench_pipeline1"):
+        expect_launches(name, counts[name], ("bucket_colsums", "halo_edt"),
+                        ("bucket_colsums_d2", "edt_sweep") + k4)
+    expect_launches("bench_d2", counts["bench_d2"],
+                    ("bucket_colsums_d2", "halo_edt"),
+                    ("bucket_colsums", "edt_sweep") + k4)
+    expect_launches("bench_pallas", counts["bench_pallas"],
+                    ("bucket_colsums", "halo_edt") + k4,
+                    ("bucket_colsums_d2", "edt_sweep"))
+    k3, k1 = summaries["bench"], summaries["bench_pipeline1"]
+    assert k3["digest"] == k1["digest"], "BENCH_PIPELINE changed the streams"
+    assert counts["bench"] == counts["bench_pipeline1"], counts
+    log(f"bench: BENCH_PIPELINE 3 and 1 give equal streams (sha256 "
+        f"{k3['digest'][:16]}...), {k3['value'] / k1['value']:.3f}x the "
+        f"blocks/s with 3 clouds in flight (encode {k1['t_enc'] / k3['t_enc']:.3f}x, "
+        f"decode {k1['t_dec'] / k3['t_dec']:.3f}x), peak memory "
+        f"{k3['peak_bytes'] / 2**30:.3f} GiB against "
+        f"{k1['peak_bytes'] / 2**30:.3f} GiB")
+    log(f"phase 16: {time.time() - t_phase:.1f} s")
+    return k1_128, counts, summaries
+
+
+def _dp_batches(blocks, n_batches):
+    from pcc_geo_cnn_v2_tpu_torch.utils.data import BlockDataset
+
+    ds = BlockDataset(blocks[:BATCH * n_batches])
+    return [ds._pack(np.arange(i * BATCH, (i + 1) * BATCH))
+            for i in range(n_batches)]
+
+
+def _param_digest(model):
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_rank(rank, init_method, cfg, batches, out_path, device):
+    """A phase-18 rank (spawned): a step of c3p a global batch of
+    ``batches`` in a DP_WORLD-rank group on the one card; writes (loss, the
+    parameters' digest) a step."""
+    import tempfile
+
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
+    from pcc_geo_cnn_v2_tpu_torch.parallel.mesh import process_group
+    from pcc_geo_cnn_v2_tpu_torch.training import Trainer
+
+    records = []
+    with process_group(rank, DP_WORLD, init_method, device) as (group, dev):
+        backend = torch.distributed.get_backend(group)
+        with tempfile.TemporaryDirectory() as tmp:
+            t = Trainer(build_model("c3p"), cfg, tmp, seed=0,
+                        warm_start=ASSET, device=dev, group=group)
+            for step, batch in enumerate(batches, 1):
+                logs = t.step_batch(batch, step)
+                records.append((float(logs["loss"]), _param_digest(t.model)))
+        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else 0)
+    with open(out_path, "w") as f:
+        json.dump({"backend": backend, "device": str(dev), "records": records,
+                   "peak": peak}, f)
+
+
+def check_data_parallel(device, blocks):
+    """Phase 18: ``Trainer(group=...)`` on the card. Returns the launch
+    counts of the world-1 step (no kernel: training runs module convs)."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
+    from pcc_geo_cnn_v2_tpu_torch.ops import kernels
+    from pcc_geo_cnn_v2_tpu_torch.parallel.mesh import (
+        backend_for,
+        local_init_method,
+        process_group,
+    )
+    from pcc_geo_cnn_v2_tpu_torch.training import TrainConfig, Trainer
+
+    t_phase = time.time()
+    batches = _dp_batches(blocks, DP_STEPS)
+    cfg = TrainConfig(batch_size=BATCH, block_size=BLOCK)
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. nccl at world 1: bit-equal to the step without a group
+        single = Trainer(build_model("c3p"), cfg, Path(tmp) / "single",
+                         seed=0, warm_start=ASSET, device=device)
+        kernels.reset_launches()
+        torch.use_deterministic_algorithms(True)
+        try:
+            want = single.step_batch(batches[0], 1)
+            with process_group(0, 1, local_init_method(), device) as (
+                    group, dev):
+                backend = torch.distributed.get_backend(group)
+                grouped = Trainer(build_model("c3p"), cfg,
+                                  Path(tmp) / "nccl1", seed=0,
+                                  warm_start=ASSET, device=dev, group=group)
+                got = grouped.step_batch(batches[0], 1)
+                counts = dict(kernels.launches)
+                for k, v in single.model.state_dict().items():
+                    assert torch.equal(v, grouped.model.state_dict()[k]), k
+                for k, v in want.items():
+                    assert torch.equal(v, got[k]), (k, v, got[k])
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert backend == backend_for(device, 1), backend  # nccl on a card
+        assert not any(counts.values()), counts
+        log(f"data-parallel step, {backend} at world 1, c3p at batch "
+            f"{BATCH} of {BLOCK}^3: parameters and logs bit-equal to the "
+            f"trainer without a group (loss {float(got['loss'])!r}); no "
+            f"kernel launched")
+
+        # 2. DP_WORLD ranks on one card over gloo with CUDA tensors,
+        # against the single process's steps 1..DP_STEPS
+        losses = [float(want["loss"])] + [
+            float(single.step_batch(b, step)["loss"])
+            for step, b in enumerate(batches[1:], 2)]
+        del single, grouped
+        t0 = time.time()
+        init = local_init_method()
+        ctx = multiprocessing.get_context("spawn")
+        outs = [Path(tmp) / f"rank{r}.json" for r in range(DP_WORLD)]
+        procs = [ctx.Process(target=_dp_rank, args=(
+            r, init, cfg, batches, str(outs[r]), device))
+            for r in range(DP_WORLD)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=DP_TIMEOUT_S)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        assert not alive, "a data-parallel rank did not finish"
+        assert [p.exitcode for p in procs] == [0] * DP_WORLD, \
+            [p.exitcode for p in procs]
+        ranks = [json.loads(o.read_text()) for o in outs]
+    assert {r["backend"] for r in ranks} == {"gloo"}, ranks  # ranks share
+    worst = 0.0
+    for step in range(DP_STEPS):
+        digests = {r["records"][step][1] for r in ranks}
+        assert len(digests) == 1, (step, digests)
+        for r in ranks:
+            rel = abs(r["records"][step][0] - losses[step]) / abs(
+                losses[step])
+            assert rel <= DP_LOSS_REL, (step, r["records"][step][0],
+                                        losses[step])
+            worst = max(worst, rel)
+    log(f"data-parallel training, {DP_WORLD} ranks on one card over gloo "
+        f"with CUDA tensors ({ranks[0]['device']}), c3p at the global batch "
+        f"{BATCH} ({BATCH // DP_WORLD} a rank), {DP_STEPS} steps in "
+        f"{time.time() - t0:.1f} s with the processes' start: parameters "
+        f"bit-identical across the ranks after every step; losses "
+        f"{[r[0] for r in ranks[0]['records']]} against the single process's "
+        f"{losses} (worst {worst:.2e} relative); peak memory a rank "
+        f"{max(r['peak'] for r in ranks) / 2**30:.3f} GiB")
+    log(f"phase 18: {time.time() - t_phase:.1f} s")
+    return counts
+
+
 def main():
     import os
 
@@ -1564,7 +1827,7 @@ def run(device):
             check_k1_edges()
             k3 = check_k3(codec, pts, nrm, res["x_hat"], codec.bucket_k)
             check_k3_edges()
-            k5 = check_k5(codec, pts, res["x_hat"])
+            k5 = check_k5(codec, pts, res["x_hat"], res["picks"])
             check_k5_edges()
         # the rows the codec re-sweeps at K = B³
         cnt0 = (res["x_hat"][:hi - lo].reshape(hi - lo, -1)
@@ -1651,7 +1914,7 @@ def run(device):
 
     # phase 6: the d1 path, counted
     blobs, metadata, decoded, counts_d1, t_enc, t_dec = drive(codec)
-    blob_d1 = blobs[0]
+    blob_d1, decoded_d1 = blobs[0], decoded[0]
     bpp = len(blob_d1) * 8 / len(points)
     psnr = metadata[0]["metrics"]["d1_psnr"]
     psnr_host = host_d1_psnr(points, decoded[0], RESOLUTION - 1)
@@ -1933,11 +2196,50 @@ def run(device):
     counts_tr = check_training(device, blocks, params, drive,
                                expect_launches, points, psnr)
 
+    # phase 16: the benchmark driver, K1 first at its 128-block chunk
+    del codec_c, codec_cb, codec_b, codec_x
+    torch.cuda.empty_cache()
+    codec128 = BlockCodec(build_model("c3p", dtype=torch.bfloat16), params,
+                          block_size=BLOCK, batch_blocks=128, device=device)
+    k1["bench_chunk"], counts_bench, _ = check_bench(
+        codec128, flat_dev, offsets, budget, expect_launches)
+    k1["max_abs_err"] = max(k1["max_abs_err"],
+                            k1["bench_chunk"]["max_abs_err"])
+    del codec128
+    torch.cuda.empty_cache()
+
+    # phase 17: blocks round-robin over two replicas (the cards present when
+    # there are several), streams and decoded blocks against phase 6's
+    t_phase = time.time()
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    rr_devices = cards if len(cards) > 1 else cards * 2
+    codec_rr = BlockCodec(build_model("c3p"), params, block_size=BLOCK,
+                          batch_blocks=BATCH, devices=rr_devices)
+    assert codec_rr._lanes[0].model is not codec_rr._lanes[1].model
+    blobs, metadata, decoded, counts_rr, t_enc, t_dec = drive(codec_rr)
+    assert blobs[0] == blob_d1, "the round-robin stream differs from phase 6's"
+    assert np.array_equal(decoded[0], decoded_d1), "decoded blocks differ"
+    expect_launches("the round robin", counts_rr,
+                    ("bucket_colsums", "halo_edt"),
+                    ("bucket_colsums_d2", "edt_sweep") + k4_names)
+    assert counts_rr == counts_d1, (counts_rr, counts_d1)
+    log(f"round robin over {[str(d) for d in rr_devices]} (one c3p replica "
+        f"each, chunk k on replica k mod {len(rr_devices)}): stream bytes and "
+        f"{len(decoded[0])} decoded points equal phase 6's; encode "
+        f"{t_enc:.2f} s, decode {t_dec:.2f} s; launches {counts_rr}")
+    del codec_rr
+    log(f"phase 17: {time.time() - t_phase:.1f} s")
+
+    # phase 18: data-parallel training
+    torch.cuda.empty_cache()
+    counts_dp = check_data_parallel(device, blocks)
+
     by_path = {"d1": counts_d1, "A": counts_a, "B": counts_b, "C": counts_c,
                "C_bf16": counts_cb, "c2": counts_v1["c2"],
                "c1": counts_v1["c1"], "host_fixed": counts_hf,
                "host_cut": counts_hc, "point_d2_cut": counts_pd,
-               "trained_c3p": counts_tr}
+               "trained_c3p": counts_tr, **counts_bench,
+               "round_robin": counts_rr, "dp_nccl1": counts_dp}
     for name, shapes in k4.items():
         # headline numbers: f32 at the stage with the most work
         top = max((r for r in shapes if r["dtype"] == "f32"),

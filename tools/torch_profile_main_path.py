@@ -3,7 +3,7 @@
 
     python3 tools/torch_profile_main_path.py [--seed 300] [--top 20]
         [--paths d1 A B C C_bf16 xla_bf16 c2 c1 host_fixed host_cut
-         point_d2_cut train]
+         point_d2_cut train pipeline] [--clouds 8] [--pipeline 1 3]
 
 Runs the paths ``chip_smoke.py`` drives (10-bit ``figure_cloud`` with
 normals, octree level 4, batch 32; c3p at full width with
@@ -34,6 +34,14 @@ events on the device's timeline, times each conv layer's forward and
 backward in one more step (CUDA events from module hooks; the sub-pixel
 transposed convs are one layer each), then profiles three steps as above
 (wall, busy share, families, top kernels) and prints the peak memory.
+
+``pipeline`` profiles the benchmark driver's timed window
+(``pcc_geo_cnn_v2_tpu_torch/bench.py`` at its defaults: ``--clouds``
+held-out clouds, c3p in bf16, batch 128, the bucket sweep) once for each
+``--pipeline`` k, clouds in flight on k threads with a CUDA stream each.
+Kernels of several streams overlap there, so the device is busy for the
+union of the kernels' intervals on the trace, not their sum: both are
+printed, with the idle share of the union, and the families.
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -114,8 +122,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=300)
     ap.add_argument("--top", type=int, default=20)
-    ap.add_argument("--paths", nargs="+", default=list(PATHS) + ["train"],
-                    choices=list(PATHS) + ["train"])
+    extra = ["train", "pipeline"]
+    ap.add_argument("--paths", nargs="+", default=list(PATHS) + extra,
+                    choices=list(PATHS) + extra)
+    ap.add_argument("--clouds", type=int, default=8,
+                    help="held-out clouds of the pipeline path")
+    ap.add_argument("--pipeline", type=int, nargs="+", default=[1, 3],
+                    help="clouds in flight, one profile each")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -146,8 +159,9 @@ def main():
                           text=True).stdout.strip()
     print(f"card: {card}; {len(blocks)} blocks, the cut {CUT_BLOCKS}")
     for key in args.paths:
-        if key == "train":
-            rc = profile_train(blocks, args.top)
+        if key in extra:
+            rc = (profile_train(blocks, args.top) if key == "train" else
+                  profile_pipeline(args.clouds, args.pipeline, args.top))
             if rc:
                 return rc
             continue
@@ -214,7 +228,8 @@ def summarize(prof, wall, top):
         print("the profiler recorded no device kernels")
         return 1
     total_us = sum(device_us(e) for e in kern)
-    print(f"device busy: {total_us / 1e6:.3f} s of {wall:.3f} s wall "
+    print(f"device busy (kernel time summed over streams): "
+          f"{total_us / 1e6:.3f} s of {wall:.3f} s wall "
           f"({100 * total_us / 1e6 / wall:.1f}%); idle "
           f"{100 - 100 * total_us / 1e6 / wall:.1f}%")
     fams = {}
@@ -227,6 +242,63 @@ def summarize(prof, wall, top):
     for e in sorted(kern, key=lambda e: -device_us(e))[:top]:
         print(f"  {device_us(e) / 1e3:10.3f} ms  {e.count:6d}x  "
               f"{e.key[:110]}")
+    return 0
+
+
+def busy_union_ms(prof):
+    """Milliseconds in which at least one device kernel, copy or fill ran:
+    the union of their intervals on the trace (several streams overlap)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    total, end = 0.0, None
+    for lo, hi in spans:
+        if end is None or lo > end:
+            total += hi - lo
+            end = hi
+        elif hi > end:
+            total += hi - end
+            end = hi
+    return total / 1e3
+
+
+def profile_pipeline(n_clouds, pipelines, top):
+    """The bench's timed window under the profiler, once a pipeline depth."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import ASSET
+    from pcc_geo_cnn_v2_tpu_torch import bench
+    from pcc_geo_cnn_v2_tpu_torch.codec import BlockCodec, deterministic_convs
+    from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
+    from pcc_geo_cnn_v2_tpu_torch.weights import load_asset_tree
+
+    deterministic_convs()
+    clouds = bench.held_out_clouds(n_clouds, False)
+    codec = BlockCodec(build_model("c3p", dtype=torch.bfloat16),
+                       load_asset_tree(ASSET), block_size=64,
+                       batch_blocks=128, sweep_backend="auto")
+    for k in pipelines:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        res = bench.run_pipeline(codec, clouds, bench.RESOLUTION, bench.LEVEL,
+                                 lambda *a: None, workers=k, window=prof)
+        wall = res["t_enc"] + res["t_dec"]
+        union = busy_union_ms(prof)
+        print(f"=== pipeline {k}: {n_clouds} clouds, {res['blocks']} "
+              f"blocks, encode {res['t_enc']:.3f} s, decode "
+              f"{res['t_dec']:.3f} s under the profiler "
+              f"({res['value']:.2f} blocks/s); device busy (union of the "
+              f"streams' kernels) {union:.1f} ms of {1e3 * wall:.1f} ms, "
+              f"idle {100 - 100 * union / 1e3 / wall:.1f}%; peak memory "
+              f"{res['peak_bytes'] / 2**30:.3f} GiB; streams sha256 "
+              f"{res['digest'][:16]}")
+        rc = summarize(prof, wall, top)
+        if rc:
+            return rc
     return 0
 
 
