@@ -164,9 +164,9 @@ The launch counts are set to 0 just before each path and read just after
 (for the bench, inside its process, around its timed window). Phases 12-18
 print their seconds.
 Prints a ``kernels`` JSON line (per kernel: launches on its path and on
-every path, max error against the plain version, its median time (K1, K2, K3, K4 and K5 per
-call in bursts of four calls, so that the wrapper's host time overlaps
-the kernels), the plain time, the least time the card could take for the
+every path, max error against the plain version, its median time (K1,
+K2, K3, K4 and K5 per call in bursts of four calls, so that the wrapper's
+host time overlaps the kernels), the plain time, the least time the card could take for the
 same work and the share of it reached (K1 and K3 at the chunk and the
 rerun, K2, K4, K5), the CUDA launches of one call (K2, K3, K5) and, for K4, the
 cuDNN chain's time and ms / library), the card line, and last
@@ -1574,15 +1574,16 @@ def check_bench(codec128, flat_dev, offsets, budget, expect_launches):
     expect_launches("bench_pallas", counts["bench_pallas"],
                     ("bucket_colsums", "halo_edt") + k4,
                     ("bucket_colsums_d2", "edt_sweep"))
-    k3, k1 = summaries["bench"], summaries["bench_pipeline1"]
-    assert k3["digest"] == k1["digest"], "BENCH_PIPELINE changed the streams"
+    p3, p1 = summaries["bench"], summaries["bench_pipeline1"]
+    assert p3["digest"] == p1["digest"], "BENCH_PIPELINE changed the streams"
     assert counts["bench"] == counts["bench_pipeline1"], counts
     log(f"bench: BENCH_PIPELINE 3 and 1 give equal streams (sha256 "
-        f"{k3['digest'][:16]}...), {k3['value'] / k1['value']:.3f}x the "
-        f"blocks/s with 3 clouds in flight (encode {k1['t_enc'] / k3['t_enc']:.3f}x, "
-        f"decode {k1['t_dec'] / k3['t_dec']:.3f}x), peak memory "
-        f"{k3['peak_bytes'] / 2**30:.3f} GiB against "
-        f"{k1['peak_bytes'] / 2**30:.3f} GiB")
+        f"{p3['digest'][:16]}...), {p3['value'] / p1['value']:.3f}x the "
+        f"blocks/s with 3 clouds in flight (encode "
+        f"{p1['t_enc'] / p3['t_enc']:.3f}x, decode "
+        f"{p1['t_dec'] / p3['t_dec']:.3f}x), peak memory "
+        f"{p3['peak_bytes'] / 2**30:.3f} GiB against "
+        f"{p1['peak_bytes'] / 2**30:.3f} GiB")
     log(f"phase 16: {time.time() - t_phase:.1f} s")
     return k1_128, counts, summaries
 

@@ -106,10 +106,6 @@ DEVICES_CFG = dict(model="v2", num_filters=16,
                    synthesis="SynthesisTransformProgressiveV2")
 
 
-def _env(name, default):
-    return os.environ.get(name, default)
-
-
 def build_cloud(seed, with_normals):
     """One held-out cloud: (points [N, 3] or [N, 6] with normals, blocks,
     binstr)."""
@@ -368,9 +364,10 @@ def main(argv=None):
         log(f"device: {torch.cuda.get_device_name(device)}")
     else:
         log("device: cpu (the kernels' plain versions)")
-    workers = int(_env("BENCH_PIPELINE", "3"))
-    opt_metrics = tuple(_env("BENCH_OPT_METRICS", "d1_mse").split(","))
-    need_metrics = _env("BENCH_NEED_METRICS", "1") != "0"
+    env = os.environ
+    workers = int(env.get("BENCH_PIPELINE", "3"))
+    opt_metrics = tuple(env.get("BENCH_OPT_METRICS", "d1_mse").split(","))
+    need_metrics = env.get("BENCH_NEED_METRICS", "1") != "0"
     run = dict(workers=workers, opt_metrics=opt_metrics,
                need_metrics=need_metrics)
 
@@ -386,31 +383,31 @@ def main(argv=None):
             "devices": args.devices, "vs_baseline": 0.0}))
         return 0
 
-    dtype_name = _env("BENCH_DTYPE", "bfloat16")
+    dtype_name = env.get("BENCH_DTYPE", "bfloat16")
     if dtype_name not in DTYPES:
         raise ValueError(f"BENCH_DTYPE {dtype_name!r} is not one of "
                          f"{list(DTYPES)}")
     with_normals = any(m.startswith("d2") for m in opt_metrics)
-    clouds = held_out_clouds(int(_env("BENCH_NUM_CLOUDS", "8")),
+    clouds = held_out_clouds(int(env.get("BENCH_NUM_CLOUDS", "8")),
                              with_normals)
     log(f"{len(clouds)} clouds, {sum(len(c[0]) for c in clouds)} points -> "
         f"{sum(len(c[1]) for c in clouds)} blocks of {BLOCK}^3")
     model = build_model("c3p", dtype=DTYPES[dtype_name],
-                        conv_backend=_env("BENCH_CONV_BACKEND", "xla"))
+                        conv_backend=env.get("BENCH_CONV_BACKEND", "xla"))
     if ASSET.exists():
         from pcc_geo_cnn_v2_tpu_torch.weights import load_asset_tree
 
         params = load_asset_tree(ASSET)
         log(f"loaded benchmark checkpoint {ASSET.name}")
     else:
-        params = quick_train(int(_env("BENCH_TRAIN_STEPS", "1200")), device,
+        params = quick_train(int(env.get("BENCH_TRAIN_STEPS", "1200")), device,
                              log)
     codec = BlockCodec(
         model, params, block_size=BLOCK, device=device,
-        batch_blocks=int(_env("BENCH_BATCH_BLOCKS", "128")),
-        sweep_backend=_env("BENCH_SWEEP_BACKEND", "auto"))
-    codec.halo_batch = int(_env("BENCH_HALO_BATCH", codec.halo_batch))
-    codec.halo_width = int(_env("BENCH_HALO_WIDTH", codec.halo_width))
+        batch_blocks=int(env.get("BENCH_BATCH_BLOCKS", "128")),
+        sweep_backend=env.get("BENCH_SWEEP_BACKEND", "auto"))
+    codec.halo_batch = int(env.get("BENCH_HALO_BATCH", codec.halo_batch))
+    codec.halo_width = int(env.get("BENCH_HALO_WIDTH", codec.halo_width))
     log(f"c3p {dtype_name}, conv backend {model.conv_backend}, sweep "
         f"{codec.sweep_backend}, batch {codec.batch_blocks}, opt metrics "
         f"{','.join(opt_metrics)}")
