@@ -1608,7 +1608,8 @@ def _param_digest(model):
 def _dp_rank(rank, init_method, cfg, batches, out_path, device):
     """A phase-18 rank (spawned): a step of c3p a global batch of
     ``batches`` in a DP_WORLD-rank group on the one card; writes (loss, the
-    parameters' digest) a step."""
+    parameters' digest, the step's seconds) a step."""
+    import os
     import tempfile
 
     import torch
@@ -1617,6 +1618,9 @@ def _dp_rank(rank, init_method, cfg, batches, out_path, device):
     from pcc_geo_cnn_v2_tpu_torch.parallel.mesh import process_group
     from pcc_geo_cnn_v2_tpu_torch.training import Trainer
 
+    # the ranks share the host's cores (oversubscribed, a CPU rank's step
+    # took 70x the single process's)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // DP_WORLD))
     records = []
     with process_group(rank, DP_WORLD, init_method, device) as (group, dev):
         backend = torch.distributed.get_backend(group)
@@ -1624,8 +1628,10 @@ def _dp_rank(rank, init_method, cfg, batches, out_path, device):
             t = Trainer(build_model("c3p"), cfg, tmp, seed=0,
                         warm_start=ASSET, device=dev, group=group)
             for step, batch in enumerate(batches, 1):
-                logs = t.step_batch(batch, step)
-                records.append((float(logs["loss"]), _param_digest(t.model)))
+                t0 = time.time()
+                loss = float(t.step_batch(batch, step)["loss"])  # waits
+                records.append((loss, _param_digest(t.model),
+                                time.time() - t0))
         peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
                 else 0)
     with open(out_path, "w") as f:
@@ -1684,9 +1690,11 @@ def check_data_parallel(device, blocks):
 
         # 2. DP_WORLD ranks on one card over gloo with CUDA tensors,
         # against the single process's steps 1..DP_STEPS
-        losses = [float(want["loss"])] + [
-            float(single.step_batch(b, step)["loss"])
-            for step, b in enumerate(batches[1:], 2)]
+        losses, single_s = [float(want["loss"])], []
+        for step, b in enumerate(batches[1:], 2):
+            t0 = time.time()
+            losses.append(float(single.step_batch(b, step)["loss"]))
+            single_s.append(time.time() - t0)
         del single, grouped
         t0 = time.time()
         init = local_init_method()
@@ -1726,6 +1734,12 @@ def check_data_parallel(device, blocks):
         f"{[r[0] for r in ranks[0]['records']]} against the single process's "
         f"{losses} (worst {worst:.2e} relative); peak memory a rank "
         f"{max(r['peak'] for r in ranks) / 2**30:.3f} GiB")
+    # steps after the first (cuDNN's set-up), the slowest rank's
+    rank_s = [max(r["records"][step][2] for r in ranks)
+              for step in range(1, DP_STEPS)]
+    log(f"data-parallel step s, steps 2-{DP_STEPS}: {DP_WORLD} ranks "
+        f"{[round(x, 4) for x in rank_s]}, the single process "
+        f"{[round(x, 4) for x in single_s]}")
     log(f"phase 18: {time.time() - t_phase:.1f} s")
     return counts
 
