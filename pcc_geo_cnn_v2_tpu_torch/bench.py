@@ -92,9 +92,9 @@ __all__ = ["BASELINE_BLOCKS_PER_SEC", "main", "run_pipeline",
            "quick_train"]
 
 # An estimate of the TF1 reference's per-block throughput on its published
-# hardware (one TF1 graph evaluation a 64³ block, CPU range coding included; no
-# wall-clock number is published, BASELINE.md), held constant as the JAX
-# bench holds it. It is no measurement of any chip.
+# hardware (one TF1 graph evaluation a 64³ block, CPU range coding
+# included; no wall-clock number is published, BASELINE.md), held constant
+# as the JAX bench holds it. It is no measurement of any chip.
 BASELINE_BLOCKS_PER_SEC = 5.0
 ASSET = (Path(__file__).resolve().parent.parent
          / "pcc_geo_cnn_v2_tpu/assets/bench_c3p.msgpack.gz")
