@@ -1508,6 +1508,9 @@ BENCH_RUNS = (
 # the ranks, the loss within DP_LOSS_REL of the single-process step: the
 # ranks add their shares of it in another order)
 DP_WORLD, DP_STEPS, DP_LOSS_REL, DP_TIMEOUT_S = 2, 3, 1e-4, 300
+# a summed gradient leaf against the single process's, as a share of that
+# leaf's largest |g| (tests/test_torch_data_parallel.py's bound)
+DP_GRAD_TOL = 1e-3
 
 
 def run_bench(name, env_extra):
@@ -1605,10 +1608,17 @@ def _param_digest(model):
     return h.hexdigest()
 
 
+def _grads(model):
+    """Every parameter's gradient on the host, by name."""
+    return {n: p.grad.detach().cpu().clone()
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
 def _dp_rank(rank, init_method, cfg, batches, out_path, device):
     """A phase-18 rank (spawned): a step of c3p a global batch of
     ``batches`` in a DP_WORLD-rank group on the one card; writes (loss, the
-    parameters' digest, the step's seconds) a step."""
+    parameters' digest, the step's seconds) a step, and rank 0 the summed
+    gradients of step 1 (``out_path`` + ``.grads``)."""
     import os
     import tempfile
 
@@ -1632,6 +1642,8 @@ def _dp_rank(rank, init_method, cfg, batches, out_path, device):
                 loss = float(t.step_batch(batch, step)["loss"])  # waits
                 records.append((loss, _param_digest(t.model),
                                 time.time() - t0))
+                if step == 1 and rank == 0:
+                    torch.save(_grads(t.model), out_path + ".grads")
         peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
                 else 0)
     with open(out_path, "w") as f:
@@ -1651,7 +1663,6 @@ def check_data_parallel(device, blocks):
     from pcc_geo_cnn_v2_tpu_torch.ops import kernels
     from pcc_geo_cnn_v2_tpu_torch.parallel.mesh import (
         backend_for,
-        local_init_method,
         process_group,
     )
     from pcc_geo_cnn_v2_tpu_torch.training import TrainConfig, Trainer
@@ -1660,6 +1671,11 @@ def check_data_parallel(device, blocks):
     batches = _dp_batches(blocks, DP_STEPS)
     cfg = TrainConfig(batch_size=BATCH, block_size=BLOCK)
     with tempfile.TemporaryDirectory() as tmp:
+        # the ranks meet at a file of the run's own directory: a tcp port
+        # could be taken by another process between its choice and its use
+        def rendezvous(name):
+            return (Path(tmp) / name).resolve().as_uri()
+
         # 1. nccl at world 1: bit-equal to the step without a group
         single = Trainer(build_model("c3p"), cfg, Path(tmp) / "single",
                          seed=0, warm_start=ASSET, device=device)
@@ -1667,7 +1683,8 @@ def check_data_parallel(device, blocks):
         torch.use_deterministic_algorithms(True)
         try:
             want = single.step_batch(batches[0], 1)
-            with process_group(0, 1, local_init_method(), device) as (
+            grads_single = _grads(single.model)
+            with process_group(0, 1, rendezvous("rdv_world1"), device) as (
                     group, dev):
                 backend = torch.distributed.get_backend(group)
                 grouped = Trainer(build_model("c3p"), cfg,
@@ -1697,7 +1714,7 @@ def check_data_parallel(device, blocks):
             single_s.append(time.time() - t0)
         del single, grouped
         t0 = time.time()
-        init = local_init_method()
+        init = rendezvous("rdv_ranks")
         ctx = multiprocessing.get_context("spawn")
         outs = [Path(tmp) / f"rank{r}.json" for r in range(DP_WORLD)]
         procs = [ctx.Process(target=_dp_rank, args=(
@@ -1715,7 +1732,17 @@ def check_data_parallel(device, blocks):
         assert [p.exitcode for p in procs] == [0] * DP_WORLD, \
             [p.exitcode for p in procs]
         ranks = [json.loads(o.read_text()) for o in outs]
+        grads_ranks = torch.load(str(outs[0]) + ".grads")
     assert {r["backend"] for r in ranks} == {"gloo"}, ranks  # ranks share
+    # the global-denominator rule: the ranks' summed gradient is the whole
+    # batch's (averaged per-rank losses would give another)
+    assert sorted(grads_ranks) == sorted(grads_single)
+    grad_worst = 0.0
+    for name, w in grads_single.items():
+        scale = max(float(w.abs().max()), 1e-30)
+        err = float((grads_ranks[name] - w).abs().max()) / scale
+        assert err <= DP_GRAD_TOL, (name, err)
+        grad_worst = max(grad_worst, err)
     worst = 0.0
     for step in range(DP_STEPS):
         digests = {r["records"][step][1] for r in ranks}
@@ -1732,7 +1759,9 @@ def check_data_parallel(device, blocks):
         f"{time.time() - t0:.1f} s with the processes' start: parameters "
         f"bit-identical across the ranks after every step; losses "
         f"{[r[0] for r in ranks[0]['records']]} against the single process's "
-        f"{losses} (worst {worst:.2e} relative); peak memory a rank "
+        f"{losses} (worst {worst:.2e} relative); step 1's summed gradients "
+        f"against the single process's: worst leaf {grad_worst:.2e} of its "
+        f"largest |g| (bound {DP_GRAD_TOL}); peak memory a rank "
         f"{max(r['peak'] for r in ranks) / 2**30:.3f} GiB")
     # steps after the first (cuDNN's set-up), the slowest rank's
     rank_s = [max(r["records"][step][2] for r in ranks)

@@ -100,6 +100,7 @@ ASSET = (Path(__file__).resolve().parent.parent
          / "pcc_geo_cnn_v2_tpu/assets/bench_c3p.msgpack.gz")
 RESOLUTION, LEVEL, BLOCK = 1024, 4, 64
 FIRST_SEED = 300
+NUM_CLOUDS = 8  # BENCH_NUM_CLOUDS' default
 DTYPES = {"bfloat16": torch.bfloat16, "float32": None}
 DEVICES_CFG = dict(model="v2", num_filters=16,
                    analysis="AnalysisTransformProgressiveV2",
@@ -388,7 +389,7 @@ def main(argv=None):
         raise ValueError(f"BENCH_DTYPE {dtype_name!r} is not one of "
                          f"{list(DTYPES)}")
     with_normals = any(m.startswith("d2") for m in opt_metrics)
-    clouds = held_out_clouds(int(env.get("BENCH_NUM_CLOUDS", "8")),
+    clouds = held_out_clouds(int(env.get("BENCH_NUM_CLOUDS", NUM_CLOUDS)),
                              with_normals)
     log(f"{len(clouds)} clouds, {sum(len(c[0]) for c in clouds)} points -> "
         f"{sum(len(c[1]) for c in clouds)} blocks of {BLOCK}^3")

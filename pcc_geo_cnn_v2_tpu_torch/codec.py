@@ -57,7 +57,9 @@ re-decoded.
 
 With ``devices=[...]`` (JAX ``codec.py:199-209``) the chunks of a cloud
 round-robin over one model replica a device, all loaded from the same host
-params: chunk k runs on ``devices[k % n]``. A round of chunks, one a
+params: chunk k runs on ``devices[k % n]``. A lane holds only what
+differs by device (the device, its model replica, its threshold grid);
+every setting is read from the one codec. A round of chunks, one a
 device, is dispatched before any of it is fetched, so that the devices
 work at once; the parts are gathered to ``devices[0]``, which runs the
 overflow rerun, the full-cloud metrics and the selection. The decoder
@@ -209,6 +211,16 @@ def deterministic_convs():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+class _Lane:
+    """What differs between the devices of a round-robin codec: the
+    device, its model replica and its threshold grid on that device."""
+
+    __slots__ = ("device", "model", "thr_dev")
+
+    def __init__(self, device, model, thr_dev):
+        self.device, self.model, self.thr_dev = device, model, thr_dev
+
+
 class BlockCodec:
     """Drives a compression model over lists of octree blocks."""
 
@@ -261,15 +273,11 @@ class BlockCodec:
         # the exact full-grid argmin EDT (the JAX codec's knob and default)
         band = os.environ.get("PCC_D2_BAND", "12")
         self.d2_band = None if band.lower() == "none" else int(band)
-        # chunk k runs on self._lanes[k % len(self._lanes)]: this codec,
-        # then a shallow copy a further device, with its own model replica
-        self._lanes = [self]
-        for dev in self.devices[1:]:
-            lane = copy.copy(self)
-            lane.device, lane._lanes = dev, None
-            lane.model = copy.deepcopy(self.model).to(dev)
-            lane.thr_dev = self.thr_dev.to(dev)
-            self._lanes.append(lane)
+        # chunk k runs on self._lanes[k % len(self._lanes)]: this codec's
+        # model, then one replica a further device
+        self._lanes = [_Lane(self.device, self.model, self.thr_dev)] + [
+            _Lane(dev, copy.deepcopy(self.model).to(dev),
+                  self.thr_dev.to(dev)) for dev in self.devices[1:]]
         self.set_params(params)
         if self.is_v2:
             self.gc_table = build_gaussian_cdf(
@@ -314,26 +322,30 @@ class BlockCodec:
         bs = self.batch_blocks
         return [(lo, min(lo + bs, n)) for lo in range(0, n, bs)]
 
-    def _pad_rows(self, a, rows):
+    def _pad_rows(self, a, rows, lane):
         """Zero-pad a host array's rows to the canonical batch width and
-        move it to the device."""
-        t = torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+        move it to the lane's device."""
+        t = torch.as_tensor(np.ascontiguousarray(a), device=lane.device)
         if len(t) < rows:
             t = torch.cat([t, t.new_zeros((rows - len(t),) + t.shape[1:])])
         return t
 
     # -- canonical device passes ------------------------------------------
 
-    def _decode_z(self, z_sym):
+    def _decode_z(self, z_sym, lane=None):
+        """``lane`` (:class:`_Lane`) is the replica to run on: the first
+        device's when None, here and in the methods below."""
         deterministic_convs()
-        return self.model.decode_z(z_sym)[1].to(torch.uint8)
+        model = (lane or self._lanes[0]).model
+        return model.decode_z(z_sym)[1].to(torch.uint8)
 
-    def _decode_y(self, y_sym):
+    def _decode_y(self, y_sym, lane=None):
         """The decoder-canonical x_hat (v1: ``decode``)."""
         deterministic_convs()
+        model = (lane or self._lanes[0]).model
         if self.is_v2:
-            return self.model.decode_y(y_sym)
-        return self.model.decode(y_sym)
+            return model.decode_y(y_sym)
+        return model.decode(y_sym)
 
     def _masks(self, x_hat, thr):
         """Packed 1-bit masks ``x_hat > thr`` per block: [N, B³/8]."""
@@ -361,7 +373,8 @@ class BlockCodec:
 
     # -- encode ------------------------------------------------------------
 
-    def _sweep(self, x_hat, pts, occ, opt_metrics, max_deltas, nrm=None):
+    def _sweep(self, x_hat, pts, occ, opt_metrics, max_deltas, nrm=None,
+               lane=None):
         """Threshold sweep of one chunk on the codec's backend: (picks
         [N, M] int32, overflow [N] bool — the bucket backend's rows to
         re-sweep, :meth:`_rerun` — or None). With normals (``nrm``) a
@@ -370,20 +383,21 @@ class BlockCodec:
         sel = dict(opt_metrics=opt_metrics, max_deltas=max_deltas)
         if nrm is None and any(m in D2_METRICS for m in opt_metrics):
             raise ValueError("d2 opt metrics need per-point normals")
+        thr = (lane or self._lanes[0]).thr_dev
         if nrm is not None and self.sweep_backend != "bucket":
             return select_thresholds_device_pts(
-                occ, x_hat[..., 0], self.thr_dev, pts, nrm,
+                occ, x_hat[..., 0], thr, pts, nrm,
                 band=self.d2_band, **sel), None
         if any(m in D2_METRICS for m in opt_metrics):
             sel["nrm"] = nrm  # K3; d1 metrics alone stay on K1
         elif self.sweep_backend == "pallas":
             return select_thresholds_d1_pallas(
-                occ, x_hat[..., 0], self.thr_dev, pts=pts, **sel), None
+                occ, x_hat[..., 0], thr, pts=pts, **sel), None
         elif self.sweep_backend == "xla":
             return select_thresholds_d1_batch(
-                occ, x_hat[..., 0], self.thr_dev, **sel), None
+                occ, x_hat[..., 0], thr, **sel), None
         return select_thresholds_d1_bucket(
-            x_hat[..., 0], pts, self.thr_dev, K=self.bucket_k, **sel)
+            x_hat[..., 0], pts, thr, K=self.bucket_k, **sel)
 
     def _rerun(self, res, pts, nrm, opt_metrics, max_deltas):
         """Re-sweep a chunk's bucket-overflowed rows (``res["overflow"]``,
@@ -411,18 +425,19 @@ class BlockCodec:
             mask[rows] = self._masks(x_hat, thr[:, m]).to(rows.device)
         return res
 
-    def _chunk_offsets(self, offsets, lo, hi):
+    def _chunk_offsets(self, offsets, lo, hi, device):
         """(f0, f1, [batch_blocks + 1] device offsets) of blocks lo..hi-1
         inside the flat stream; trailing padding blocks are empty."""
         f0, f1 = int(offsets[lo]), int(offsets[hi])
         offs = np.full(self.batch_blocks + 1, f1 - f0, np.int32)
         offs[:hi - lo + 1] = offsets[lo:hi + 1] - f0
-        return f0, f1, torch.as_tensor(offs, device=self.device)
+        return f0, f1, torch.as_tensor(offs, device=device)
 
     def chunk_points(self, flat_dev, offsets, lo, hi, budget):
         """[batch_blocks, budget, 3] int32 point lists of blocks lo..hi-1
-        (padding rows and blocks -1) from the packed flat device stream."""
-        f0, f1, offs = self._chunk_offsets(offsets, lo, hi)
+        (padding rows and blocks -1) from the packed flat device stream,
+        on that stream's device."""
+        f0, f1, offs = self._chunk_offsets(offsets, lo, hi, flat_dev.device)
         return unflatten_points(
             unpack_coords(flat_dev[f0:f1], self.block_size), offs,
             self.batch_blocks, budget)
@@ -430,12 +445,12 @@ class BlockCodec:
     def chunk_normals(self, nrm_dev, offsets, lo, hi, budget):
         """[batch_blocks, budget, 3] f32 normals matching
         :meth:`chunk_points` (zero padding rows) from the flat [F, 3]
-        device stream."""
-        f0, f1, offs = self._chunk_offsets(offsets, lo, hi)
+        device stream, on its device."""
+        f0, f1, offs = self._chunk_offsets(offsets, lo, hi, nrm_dev.device)
         return unflatten_points(nrm_dev[f0:f1], offs, self.batch_blocks,
                                 budget, fill=0)
 
-    def canonical_chunk(self, pts, n_valid):
+    def canonical_chunk(self, pts, n_valid, lane=None):
         """One chunk's symbols and its decoder-canonical x_hat: voxelize →
         symbols → decode_z / decode_y (v1: decode). Rows past ``n_valid``
         are padding.
@@ -449,14 +464,14 @@ class BlockCodec:
             raise ValueError("block(s) contain duplicate voxel coordinates; "
                              "dedup inputs (see cli/compress.py)")
         deterministic_convs()
-        res = self.model.encode_syms(x)
+        res = (lane or self._lanes[0]).model.encode_syms(x)
         # canonical decoder feed: padding rows are zero symbols, as the
         # decoder pads them
         for key in res:
             res[key][n_valid:] = 0
         if self.is_v2:
-            res["y_idx"] = self._decode_z(res["z_sym"])
-        res["x_hat"] = self._decode_y(res["y_sym"])
+            res["y_idx"] = self._decode_z(res["z_sym"], lane)
+        res["x_hat"] = self._decode_y(res["y_sym"], lane)
         res["x"] = x
         return res
 
@@ -473,14 +488,15 @@ class BlockCodec:
                                    nrm)
         return self._rerun(res, pts, nrm, opt_metrics, max_deltas)
 
-    def _dispatch_chunk(self, pts, n_valid, opt_metrics, max_deltas, nrm):
+    def _dispatch_chunk(self, pts, n_valid, opt_metrics, max_deltas, nrm,
+                        lane=None):
         """:meth:`encode_chunk` up to the overflow rerun: ``res`` also
         holds ``overflow`` (see :meth:`_sweep`)."""
-        res = self.canonical_chunk(pts, n_valid)
+        res = self.canonical_chunk(pts, n_valid, lane)
         x, x_hat = res.pop("x"), res["x_hat"]
         res["picks"], res["overflow"] = self._sweep(
-            x_hat, pts, x[..., 0], opt_metrics, max_deltas, nrm)
-        thr = self.thr_dev[res["picks"].long()]
+            x_hat, pts, x[..., 0], opt_metrics, max_deltas, nrm, lane)
+        thr = (lane or self._lanes[0]).thr_dev[res["picks"].long()]
         res["masks"] = [self._masks(x_hat, thr[:, m])
                         for m in range(thr.shape[1])]
         res["occ"] = packbits((x[..., 0] > 0).reshape(len(x), -1))
@@ -539,12 +555,12 @@ class BlockCodec:
             sent = []
             for lane, (lo, hi) in zip(self._lanes,
                                       chunks[first:first + n_lanes]):
-                pts = lane.chunk_points(flat_dev[lane.device], offsets, lo,
+                pts = self.chunk_points(flat_dev[lane.device], offsets, lo,
                                         hi, budget)
-                nrm = None if nrm_dev is None else lane.chunk_normals(
+                nrm = None if nrm_dev is None else self.chunk_normals(
                     nrm_dev[lane.device], offsets, lo, hi, budget)
-                sent.append((lo, hi, pts, nrm, lane._dispatch_chunk(
-                    pts, hi - lo, opt_metrics, max_deltas, nrm)))
+                sent.append((lo, hi, pts, nrm, self._dispatch_chunk(
+                    pts, hi - lo, opt_metrics, max_deltas, nrm, lane)))
             for lo, hi, pts, nrm, res in sent:
                 res = self._rerun(res, pts, nrm, opt_metrics, max_deltas)
                 for m in range(n_metrics):
@@ -761,8 +777,8 @@ class BlockCodec:
                                      self.eb_table, per_stream=False)
             marks.append(time.time())
             y_idx = np.concatenate(self._round_robin(
-                n, lambda lane, lo, hi: lane._decode_z(
-                    lane._pad_rows(z_syms[lo:hi], bs))[:hi - lo]))
+                n, lambda lane, lo, hi: self._decode_z(
+                    self._pad_rows(z_syms[lo:hi], bs, lane), lane)[:hi - lo]))
             marks.append(time.time())
             y_syms = rc.decode_batch([p[0][0] for p in payload], y_idx,
                                      self.gc_table, per_stream=True)
@@ -772,9 +788,9 @@ class BlockCodec:
                                      self._channel_indexes(self.y_shape),
                                      self.eb_table, per_stream=False)
         marks.append(time.time())
-        masks = self._round_robin(n, lambda lane, lo, hi: lane._masks(
-            lane._decode_y(lane._pad_rows(y_syms[lo:hi], bs)),
-            lane._pad_rows(thr[lo:hi], bs))[:hi - lo])
+        masks = self._round_robin(n, lambda lane, lo, hi: self._masks(
+            self._decode_y(self._pad_rows(y_syms[lo:hi], bs, lane), lane),
+            self._pad_rows(thr[lo:hi], bs, lane))[:hi - lo])
         marks.append(time.time())
         blocks = unpack_mask_coords(np.concatenate(masks), self.block_size)
         marks.append(time.time())

@@ -10,19 +10,19 @@ all-reduces (the "dp" axis). The spatial axis is not ported here.
 from __future__ import annotations
 
 import contextlib
-import socket
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["pad_to_multiple", "shard_rows", "backend_for", "process_group",
-           "local_init_method"]
+__all__ = ["pad_to_multiple", "shard_rows", "backend_for", "process_group"]
 
 
 def pad_to_multiple(arr: np.ndarray, multiple: int, axis=0):
     """Pad ``arr`` along ``axis`` to a multiple (shardable batch): (padded,
-    the original length)."""
+    the original length). The data-parallel trainer pads nothing
+    (:func:`shard_rows` refuses an indivisible batch); the spatial axis,
+    not yet ported, pads with it."""
     n = arr.shape[axis]
     rem = (-n) % multiple
     if rem == 0:
@@ -55,21 +55,14 @@ def backend_for(device, world):
     return "nccl" if world <= torch.cuda.device_count() else "gloo"
 
 
-def local_init_method():
-    """``tcp://localhost:<port>`` on a port free at the time of the call."""
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return f"tcp://localhost:{s.getsockname()[1]}"
-
-
 @contextlib.contextmanager
 def process_group(rank, world, init_method, device="cpu"):
     """Join the process group of ``world`` ranks as ``rank``; yields
     (group, this rank's device) and leaves the group on exit.
 
     :param init_method: where the ranks meet (``tcp://host:port`` or
-        ``file://path``); nothing on the machine names a cluster, so the
-        caller gives it.
+        ``file://path``, a file that does not exist yet); nothing on the
+        machine names a cluster, so the caller gives it.
     :param device: ``"cpu"``, or ``"cuda"``: rank r takes card
         ``r mod cards``, made its current device.
     """

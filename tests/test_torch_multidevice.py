@@ -15,6 +15,7 @@ ATen). Also: the launch counter keeps every count under 8 threads.
 """
 
 import gzip
+import inspect
 import sys
 import threading
 
@@ -25,6 +26,7 @@ import torch
 
 from pcc_geo_cnn_v2_tpu.codec import BlockCodec as JaxCodec
 from pcc_geo_cnn_v2_tpu.models.configs import build_model as jax_build
+from pcc_geo_cnn_v2_tpu_torch import codec as codec_mod
 from pcc_geo_cnn_v2_tpu_torch.codec import BlockCodec
 from pcc_geo_cnn_v2_tpu_torch.coding.syntax import save_compressed_file
 from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
@@ -69,8 +71,7 @@ def setup():
 def _codec(s, **kw):
     codec = BlockCodec(build_model(CFG), s["params"], block_size=B,
                        batch_blocks=BS, **kw)
-    for lane in codec._lanes:
-        lane.bucket_k = BUCKET_K
+    codec.bucket_k = BUCKET_K  # after construction: every lane reads it
     return codec
 
 
@@ -89,17 +90,18 @@ def _single(s, name, kw):
 
 
 def _record(monkeypatch, codec, method):
-    """Wrap ``method`` of every replica: the replica index of each call,
-    in call order."""
+    """Wrap ``method`` of the codec: the index of the lane (replica) each
+    call ran on, in call order."""
     calls = []
-    for i, lane in enumerate(codec._lanes):
-        real = getattr(lane, method)
+    real = getattr(codec, method)
+    sig = inspect.signature(real)
 
-        def wrapper(*a, _i=i, _real=real, **kw):
-            calls.append(_i)
-            return _real(*a, **kw)
+    def wrapper(*a, **kw):
+        lane = sig.bind(*a, **kw).arguments.get("lane")
+        calls.append(0 if lane is None else codec._lanes.index(lane))
+        return real(*a, **kw)
 
-        monkeypatch.setattr(lane, method, wrapper)
+    monkeypatch.setattr(codec, method, wrapper)
     return calls
 
 
@@ -135,6 +137,31 @@ def test_round_robin_gives_the_single_device_streams(setup, monkeypatch,
         for d, e in zip(blocks, metadata[g]["x_hat_list"]):
             np.testing.assert_array_equal(d, e)
     assert dec == [k % n for k in range(n_chunks)] * len(data_list)
+
+
+def test_settings_set_after_construction_reach_every_lane(setup,
+                                                         monkeypatch):
+    """A lane holds only its device, model replica and thresholds: the
+    ``bucket_k`` assigned on the codec after construction (``_codec``)
+    budgets every chunk's sweep, whichever lane runs it."""
+    s = setup
+    codec = _codec(s, devices=["cpu"] * 2)
+    real = codec_mod.select_thresholds_d1_bucket
+    budgets = []
+
+    def spy(*a, K, **kw):
+        budgets.append(K)
+        return real(*a, K=K, **kw)
+
+    monkeypatch.setattr(codec_mod, "select_thresholds_d1_bucket", spy)
+    enc = _record(monkeypatch, codec, "_dispatch_chunk")
+    codec.compress_blocks_device_opt(s["blocks"], s["binstr"],
+                                     s["pts"][:, :3], R, LEVEL)
+    n_chunks = -(-len(s["blocks"]) // BS)
+    assert enc == [k % 2 for k in range(n_chunks)]
+    # one sweep a chunk at the budget, then the overflow reruns at B³
+    assert budgets.count(BUCKET_K) == n_chunks
+    assert set(budgets) == {BUCKET_K, B ** 3}
 
 
 def test_replicas_follow_set_params(setup):

@@ -3,7 +3,7 @@
 
     python3 tools/torch_profile_main_path.py [--seed 300] [--top 20]
         [--paths d1 A B C C_bf16 xla_bf16 c2 c1 host_fixed host_cut
-         point_d2_cut train pipeline] [--clouds 8] [--pipeline 1 3]
+         point_d2_cut train pipeline]
 
 Runs the paths ``chip_smoke.py`` drives (10-bit ``figure_cloud`` with
 normals, octree level 4, batch 32; c3p at full width with
@@ -36,9 +36,9 @@ transposed convs are one layer each), then profiles three steps as above
 (wall, busy share, families, top kernels) and prints the peak memory.
 
 ``pipeline`` profiles the benchmark driver's timed window
-(``pcc_geo_cnn_v2_tpu_torch/bench.py`` at its defaults: ``--clouds``
-held-out clouds, c3p in bf16, batch 128, the bucket sweep) once for each
-``--pipeline`` k, clouds in flight on k threads with a CUDA stream each.
+(``pcc_geo_cnn_v2_tpu_torch/bench.py`` at its defaults: 8 held-out
+clouds, c3p in bf16, batch 128, the bucket sweep) at 1 and at 3 clouds in
+flight, on as many threads with a CUDA stream each.
 Kernels of several streams overlap there, so the device is busy for the
 union of the kernels' intervals on the trace, not their sum: both are
 printed, with the idle share of the union, and the families.
@@ -125,10 +125,6 @@ def main():
     extra = ["train", "pipeline"]
     ap.add_argument("--paths", nargs="+", default=list(PATHS) + extra,
                     choices=list(PATHS) + extra)
-    ap.add_argument("--clouds", type=int, default=8,
-                    help="held-out clouds of the pipeline path")
-    ap.add_argument("--pipeline", type=int, nargs="+", default=[1, 3],
-                    help="clouds in flight, one profile each")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -161,7 +157,7 @@ def main():
     for key in args.paths:
         if key in extra:
             rc = (profile_train(blocks, args.top) if key == "train" else
-                  profile_pipeline(args.clouds, args.pipeline, args.top))
+                  profile_pipeline(args.top))
             if rc:
                 return rc
             continue
@@ -265,8 +261,9 @@ def busy_union_ms(prof):
     return total / 1e3
 
 
-def profile_pipeline(n_clouds, pipelines, top):
-    """The bench's timed window under the profiler, once a pipeline depth."""
+def profile_pipeline(top):
+    """The bench's timed window under the profiler at its default cloud
+    count, with 1 and with 3 clouds in flight."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -277,18 +274,18 @@ def profile_pipeline(n_clouds, pipelines, top):
     from pcc_geo_cnn_v2_tpu_torch.weights import load_asset_tree
 
     deterministic_convs()
-    clouds = bench.held_out_clouds(n_clouds, False)
+    clouds = bench.held_out_clouds(bench.NUM_CLOUDS, False)
     codec = BlockCodec(build_model("c3p", dtype=torch.bfloat16),
                        load_asset_tree(ASSET), block_size=64,
                        batch_blocks=128, sweep_backend="auto")
-    for k in pipelines:
+    for k in (1, 3):
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
         res = bench.run_pipeline(codec, clouds, bench.RESOLUTION, bench.LEVEL,
                                  lambda *a: None, workers=k, window=prof)
         wall = res["t_enc"] + res["t_dec"]
         union = busy_union_ms(prof)
-        print(f"=== pipeline {k}: {n_clouds} clouds, {res['blocks']} "
+        print(f"=== pipeline {k}: {len(clouds)} clouds, {res['blocks']} "
               f"blocks, encode {res['t_enc']:.3f} s, decode "
               f"{res['t_dec']:.3f} s under the profiler "
               f"({res['value']:.2f} blocks/s); device busy (union of the "
