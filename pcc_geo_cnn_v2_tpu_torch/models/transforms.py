@@ -38,7 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Conv", "ConvTranspose", "AnalysisTransformV1",
+__all__ = ["Conv", "ConvTranspose", "subpixel_conv_transpose",
+           "AnalysisTransformV1",
            "SynthesisTransformV1", "AnalysisBlock", "SynthesisBlock",
            "BlockStack", "HyperAnalysisTransform", "HyperSynthesisTransform",
            "TRANSFORMS"]
@@ -143,32 +144,49 @@ class ConvTranspose(nn.Module):
             if x.dtype == torch.float32:
                 return F.conv3d(xp, weight, bias)
             return _add_bias(_conv3d(xp, weight), bias)
-        sizes = x.shape[2:]
-        outs = [(n - 1) * s + pad_a + pad_b - k + 2 for n in sizes]
-        # the parity classes are written into the input's memory format
-        last = (x.is_contiguous(memory_format=torch.channels_last_3d)
-                and not x.is_contiguous())
-        y = torch.empty(
-            (x.shape[0], weight.shape[0], *outs), dtype=x.dtype,
-            device=x.device, memory_format=torch.channels_last_3d if last
-            else torch.contiguous_format).zero_()
-        for rs in itertools.product(range(s), repeat=3):
-            w, pads = weight, []
-            for ax, (r, n, L) in enumerate(zip(rs, sizes, outs)):
-                taps, o0 = _parity_taps(k, s, pad_a, r)
-                if not taps:
-                    break
-                w = w.index_select(2 + ax, torch.tensor(taps,
-                                                        device=x.device))
-                n_r = len(range(r, L, s))
-                # read x[o0 .. o0 + n_r + len(taps) - 2]; F.pad crops when
-                # a pad is negative
-                pads.append((-o0, o0 + n_r + len(taps) - 1 - n))
-            else:
-                flat = [p for pair in reversed(pads) for p in pair]
-                y[:, :, rs[0]::s, rs[1]::s, rs[2]::s] = _conv3d(
-                    F.pad(x, flat), w)
-        return _add_bias(y, bias)
+        outs = [(n - 1) * s + pad_a + pad_b - k + 2 for n in x.shape[2:]]
+        return _add_bias(subpixel_conv_transpose(x, weight, s, outs), bias)
+
+
+def subpixel_conv_transpose(x, weight, s, outs, shifts=(0, 0, 0)):
+    """``lax.conv_transpose`` (``SAME``, stride ``s``, un-flipped OIDHW
+    ``weight``) of NCDHW ``x`` without bias, as s³ forward convs, one a
+    parity class: output j = s·i + r of an axis reads input
+    i + o0 + t through tap ``taps[t]`` (:func:`_parity_taps`).
+
+    :param outs: the output length of each spatial axis.
+    :param shifts: per axis, how many planes ``x`` holds before the
+        global input's first: output j then reads ``x[i + o0 + t +
+        shift]``. 0 for a whole input; a depth slab extended by a halo of
+        ``shift`` planes of its lower neighbour gives the slab's outputs
+        (``parallel.spatial``). Planes read outside ``x`` are zeros.
+    """
+    ks = weight.shape[2:]
+    sizes = x.shape[2:]
+    # the parity classes are written into the input's memory format
+    last = (x.is_contiguous(memory_format=torch.channels_last_3d)
+            and not x.is_contiguous())
+    y = torch.empty(
+        (x.shape[0], weight.shape[0], *outs), dtype=x.dtype,
+        device=x.device, memory_format=torch.channels_last_3d if last
+        else torch.contiguous_format).zero_()
+    for rs in itertools.product(range(s), repeat=3):
+        w, pads = weight, []
+        for ax, (r, n, L, shift, k) in enumerate(zip(rs, sizes, outs, shifts,
+                                                      ks)):
+            taps, o0 = _parity_taps(k, s, transpose_pads(k, s)[0], r)
+            if not taps:
+                break
+            w = w.index_select(2 + ax, torch.tensor(taps, device=x.device))
+            n_r = len(range(r, L, s))
+            # read x[o .. o + n_r + len(taps) - 2]; F.pad crops when a pad
+            # is negative
+            o = o0 + shift
+            pads.append((-o, o + n_r + len(taps) - 1 - n))
+        else:
+            flat = [p for pair in reversed(pads) for p in pair]
+            y[:, :, rs[0]::s, rs[1]::s, rs[2]::s] = _conv3d(F.pad(x, flat), w)
+    return y
 
 
 class AnalysisTransformV1(nn.Module):

@@ -1,10 +1,12 @@
-"""Data-parallel helpers: shards of a global batch, and the process group.
+"""Process-group helpers: shards of a global batch, and the process group.
 
-Port of ``pcc_geo_cnn_v2_tpu/parallel/mesh.py`` for its data-parallel axis.
-JAX shards a batch over a device mesh inside one process; the port runs
-one process a rank, each holding its rows of every global batch, in a
-``torch.distributed`` group over which ``training.Trainer(group=...)``
-all-reduces (the "dp" axis). The spatial axis is not ported here.
+Port of ``pcc_geo_cnn_v2_tpu/parallel/mesh.py``. JAX lays its axes over a
+device mesh inside one process; the port runs one process a rank in a
+``torch.distributed`` group (:func:`process_group`). On the "dp" axis
+each rank holds its rows of every global batch and
+``training.Trainer(group=...)`` all-reduces over the group; on the "sp"
+axis each rank holds a depth slab of an oversized block and
+``parallel/spatial.py`` exchanges halos over it.
 """
 
 from __future__ import annotations
@@ -20,9 +22,11 @@ __all__ = ["pad_to_multiple", "shard_rows", "backend_for", "process_group"]
 
 def pad_to_multiple(arr: np.ndarray, multiple: int, axis=0):
     """Pad ``arr`` along ``axis`` to a multiple (shardable batch): (padded,
-    the original length). The data-parallel trainer pads nothing
-    (:func:`shard_rows` refuses an indivisible batch); the spatial axis,
-    not yet ported, pads with it."""
+    the original length); the port's copy of the JAX helper. Nothing in
+    the port calls it: the data-parallel trainer pads nothing
+    (:func:`shard_rows` refuses an indivisible batch), and the spatial
+    axis refuses an indivisible depth, as JAX's asserts it
+    (``spatial.py:80``, ``:131``)."""
     n = arr.shape[axis]
     rem = (-n) % multiple
     if rem == 0:
