@@ -159,9 +159,23 @@ exit):
    rank a card), 3 steps at the global batch 32: the ranks' parameters
    bit-identical after every step, each loss within 1e-4 relative of the
    single process's.
+19. Spatial (sp) sharding (``parallel/spatial.py``), c3p at full width in
+   f32 on the most populated 256³ cell of the cloud (octree level 2, 64
+   blocks of 64³ in one block): the unsharded ``encode_syms`` /
+   ``decode_y`` on the card; at world 1 on ``nccl`` the sharded encode and
+   decode bit-equal to them (zero halos: the same convs), no kernel
+   launched; then 2 processes on the one card over ``gloo`` (halos staged
+   through the host): under 5e-4 of the symbols differ from the unsharded
+   ones, and the rANS round trip — the symbols coded to bytes, decoded
+   from the bytes alone with ``decode_z`` unsharded, y decoded sharded —
+   gives the decoder an x_hat bit-equal to the encoder's and an equal mask
+   at 0.51. Each rank's peak memory, wall and device ms of the encode and
+   the decode are printed beside the unsharded ones. Then
+   ``dryrun.dryrun_multichip(4)``: one data-parallel c3p step and the
+   sp-sharded encode of a 64³ block, over four gloo ranks on the card.
 
 The launch counts are set to 0 just before each path and read just after
-(for the bench, inside its process, around its timed window). Phases 12-18
+(for the bench, inside its process, around its timed window). Phases 12-19
 print their seconds.
 Prints a ``kernels`` JSON line (per kernel: launches on its path and on
 every path, max error against the plain version, its median time (K1,
@@ -419,20 +433,32 @@ def k2_inputs(occ, mask, origins):
                             device=dev))
 
 
-def device_work(call):
-    """(device operations, device ms) of one call under torch.profiler:
-    every kernel, copy and fill that took device time."""
+def profiled(call, tries=3):
+    """``key_averages()`` of one ``call()`` under torch.profiler (CUDA
+    activity). A window in which the profiler recorded no device time at
+    all is a dropped reading, not a result (on the H100 machines CUPTI has
+    lost a short window's records): it is taken again, up to ``tries``
+    times, and then raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    us = lambda e: float(getattr(e, "self_device_time_total", 0.0)  # noqa
-                         or getattr(e, "self_cuda_time_total", 0.0))
-    evts = [e for e in prof.key_averages() if us(e) > 0]
-    return sum(e.count for e in evts), sum(us(e) for e in evts) / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        evts = prof.key_averages()
+        if any(device_us(e) > 0 for e in evts):
+            return evts
+    raise RuntimeError(f"the profiler recorded no device time in {tries} "
+                       f"windows")
+
+
+def device_work(call):
+    """(device operations, device ms) of one call under torch.profiler:
+    every kernel, copy and fill that took device time."""
+    evts = [e for e in profiled(call) if device_us(e) > 0]
+    return sum(e.count for e in evts), sum(device_us(e) for e in evts) / 1e3
 
 
 def passes_k2_ops(a_ext, b_ext, idx):
@@ -597,14 +623,7 @@ def check_k2_edges():
 def cuda_launches(call, family):
     """CUDA kernels one call launches whose names hold ``family``, counted
     by torch.profiler (K3's names hold ``bucket_d2``, K5's ``edt_sweep``)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
+    return sum(e.count for e in profiled(call)
                if family in e.key and "cudaLaunch" not in e.key)
 
 
@@ -1614,11 +1633,13 @@ def _grads(model):
             for n, p in model.named_parameters() if p.grad is not None}
 
 
-def _dp_rank(rank, init_method, cfg, batches, out_path, device):
+def _dp_rank(rank, init_method, cfg, batches, out_dir, device):
     """A phase-18 rank (spawned): a step of c3p a global batch of
     ``batches`` in a DP_WORLD-rank group on the one card; writes (loss, the
-    parameters' digest, the step's seconds) a step, and rank 0 the summed
-    gradients of step 1 (``out_path`` + ``.grads``)."""
+    parameters' digest, the step's seconds) a step to ``rank<r>.json`` in
+    ``out_dir``, and rank 0 the summed gradients of step 1 (that path +
+    ``.grads``)."""
+    out_path = str(Path(out_dir) / f"rank{rank}.json")
     import os
     import tempfile
 
@@ -1654,11 +1675,11 @@ def _dp_rank(rank, init_method, cfg, batches, out_path, device):
 def check_data_parallel(device, blocks):
     """Phase 18: ``Trainer(group=...)`` on the card. Returns the launch
     counts of the world-1 step (no kernel: training runs module convs)."""
-    import multiprocessing
     import tempfile
 
     import torch
 
+    from pcc_geo_cnn_v2_tpu_torch.dryrun import spawn_ranks
     from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
     from pcc_geo_cnn_v2_tpu_torch.ops import kernels
     from pcc_geo_cnn_v2_tpu_torch.parallel.mesh import (
@@ -1714,23 +1735,9 @@ def check_data_parallel(device, blocks):
             single_s.append(time.time() - t0)
         del single, grouped
         t0 = time.time()
-        init = rendezvous("rdv_ranks")
-        ctx = multiprocessing.get_context("spawn")
         outs = [Path(tmp) / f"rank{r}.json" for r in range(DP_WORLD)]
-        procs = [ctx.Process(target=_dp_rank, args=(
-            r, init, cfg, batches, str(outs[r]), device))
-            for r in range(DP_WORLD)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=DP_TIMEOUT_S)
-        alive = [p for p in procs if p.is_alive()]
-        for p in alive:
-            p.kill()
-            p.join()
-        assert not alive, "a data-parallel rank did not finish"
-        assert [p.exitcode for p in procs] == [0] * DP_WORLD, \
-            [p.exitcode for p in procs]
+        spawn_ranks(_dp_rank, DP_WORLD, (rendezvous("rdv_ranks"), cfg,
+                                         batches, tmp, device), DP_TIMEOUT_S)
         ranks = [json.loads(o.read_text()) for o in outs]
         grads_ranks = torch.load(str(outs[0]) + ".grads")
     assert {r["backend"] for r in ranks} == {"gloo"}, ranks  # ranks share
@@ -1770,6 +1777,261 @@ def check_data_parallel(device, blocks):
         f"{[round(x, 4) for x in rank_s]}, the single process "
         f"{[round(x, 4) for x in single_s]}")
     log(f"phase 18: {time.time() - t_phase:.1f} s")
+    return counts
+
+
+# phase 19: the sp path on the most populated cell at octree level
+# SP_LEVEL (256³), c3p in f32: nccl at world 1 (bit-equal to the unsharded
+# executable), then SP_WORLD gloo ranks on the card (symbols within
+# SP_MISMATCH of the unsharded ones, JAX's bound; the round trip's x_hat
+# bit-equal, masks at SP_THR equal); then the dry run over DRYRUN_WORLD
+# ranks
+SP_LEVEL, SP_WORLD, SP_THR, SP_MISMATCH, SP_TIMEOUT_S = 2, 2, 0.51, 5e-4, 600
+DRYRUN_WORLD = 4
+
+
+def sp_cell(points):
+    """The cloud's most populated cell at octree level ``SP_LEVEL``: its
+    [1, S, S, S, 1] f32 occupancy (S = RESOLUTION >> SP_LEVEL) and point
+    count."""
+    from pcc_geo_cnn_v2_tpu_torch.utils.octree import partition_octree
+
+    blocks, _ = partition_octree(points[:, :3], [0, 0, 0], [RESOLUTION] * 3,
+                                 SP_LEVEL)
+    cell = max(blocks, key=len).astype(np.int64)
+    size = RESOLUTION >> SP_LEVEL
+    x = np.zeros((1, size, size, size, 1), np.float32)
+    x[0, cell[:, 0], cell[:, 1], cell[:, 2], 0] = 1.0
+    return x, len(cell)
+
+
+def sp_model(device):
+    """c3p at full width with the committed weights, f32, on ``device``."""
+    from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
+    from pcc_geo_cnn_v2_tpu_torch.weights import (
+        load_asset_tree,
+        params_from_jax,
+    )
+
+    model = build_model("c3p")
+    model.load_state_dict(params_from_jax(load_asset_tree(ASSET)))
+    return model.to(device).eval()
+
+
+def _measured(dev, encode, decode):
+    """A warm-up, then one timed encode and decode: (symbols, x_hat, a
+    record of their walls, device ms and the peak memory) on ``dev``."""
+    import torch
+
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    decode(encode()["y_sym"])  # cuDNN's set-up, the allocator's growth
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    syms = encode()
+    sync()
+    t_enc = time.time() - t0
+    t0 = time.time()
+    x_hat = decode(syms["y_sym"])
+    sync()
+    rec = {"enc_s": t_enc, "dec_s": time.time() - t0,
+           "peak": torch.cuda.max_memory_allocated(dev) if cuda else 0}
+    if cuda:
+        rec["enc_ms"] = device_work(encode)[1]
+        rec["dec_ms"] = device_work(lambda: decode(syms["y_sym"]))[1]
+    return syms, x_hat, rec
+
+
+def sp_coding(model, x, group, dev):
+    """The sp path as an encoder and as a decoder from the bytes alone, at
+    ``group``'s world size, on the rank's slab of the whole ``x`` (moved
+    to ``dev``): (the whole symbols, the rank's encoder and decoder x_hat,
+    the record of :func:`_measured` with the stream's bytes)."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.parallel import spatial
+
+    slab = spatial.depth_slab(x, group).to(dev)
+    syms, x_hat, rec = _measured(
+        dev, lambda: spatial.encode_syms_spatial(model, slab, group),
+        lambda y: spatial.decode_y_spatial(model, y, group))
+    whole = {k: spatial.gather_depth(v, group) for k, v in syms.items()}
+    strings = spatial.symbols_to_bytes(model, whole)
+    rec["bytes"] = sum(len(b) for row in strings for b in row)
+    decoded = spatial.bytes_to_symbols(model, strings,
+                                       tuple(whole["y_sym"].shape[1:]))
+    for k, v in whole.items():
+        assert torch.equal(decoded[k], v), f"{k} differs after the bytes"
+    x_hat_dec = spatial.decode_y_spatial(
+        model, spatial.depth_slab(decoded["y_sym"], group), group)
+    return whole, x_hat, x_hat_dec, rec
+
+
+def _half_slab_ms(model, x, y_sym, group):
+    """Device ms of the sharded encode and decode of the first of
+    ``SP_WORLD`` depth slabs at world 1."""
+    from pcc_geo_cnn_v2_tpu_torch.parallel import spatial
+
+    xs, ys = (t[:, :t.shape[1] // SP_WORLD].contiguous() for t in (x, y_sym))
+    return (device_work(lambda: spatial.encode_syms_spatial(model, xs,
+                                                            group))[1],
+            device_work(lambda: spatial.decode_y_spatial(model, ys,
+                                                         group))[1])
+
+
+def _sp_rank(rank, world, init_method, device, x_path, out_dir):
+    """A phase-19 rank (spawned): the sp coding of the cell at ``world``
+    on the one card; writes its record (``rank<r>.json``) and rank 0 the
+    whole symbols (``syms.npz``)."""
+    import os
+
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.parallel.mesh import process_group
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    with process_group(rank, world, init_method, device) as (group, dev):
+        model = sp_model(dev)
+        x = torch.from_numpy(np.load(x_path))  # a slab of it to the card
+        whole, x_hat, x_hat_dec, rec = sp_coding(model, x, group, dev)
+        rec.update(backend=torch.distributed.get_backend(group),
+                   device=str(dev),
+                   x_hat_equal=torch.equal(x_hat_dec, x_hat),
+                   masks_equal=torch.equal(x_hat_dec > SP_THR,
+                                           x_hat > SP_THR),
+                   occupied=int((x_hat > SP_THR).sum()))
+        if rank == 0:
+            np.savez(Path(out_dir) / "syms.npz",
+                     **{k: v.cpu().numpy() for k, v in whole.items()})
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def check_spatial(device, points, card):
+    """Phase 19 (module docstring). Returns the launch counts of the
+    world-1 run (none: the sp path runs cuDNN convs)."""
+    import tempfile
+
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.codec import deterministic_convs
+    from pcc_geo_cnn_v2_tpu_torch.dryrun import dryrun_multichip, spawn_ranks
+    from pcc_geo_cnn_v2_tpu_torch.ops import kernels
+    from pcc_geo_cnn_v2_tpu_torch.parallel.mesh import (
+        backend_for,
+        process_group,
+    )
+
+    t_phase = time.time()
+    device = torch.device(device)
+    x_np, n_pts = sp_cell(points)
+    size = x_np.shape[1]
+    model = sp_model(device)
+    x = torch.from_numpy(x_np).to(device)
+    deterministic_convs()
+    with torch.no_grad():
+        want, x_hat_want, rec_u = _measured(
+            device, lambda: model.encode_syms(x), model.decode_y)
+    log(f"sp cell: {n_pts} points in the most populated {size}^3 cell "
+        f"(octree level {SP_LEVEL}); c3p f32 unsharded on {card}: encode "
+        f"{rec_u['enc_s']:.4f} s, decode {rec_u['dec_s']:.4f} s wall, "
+        f"device {rec_u.get('enc_ms', float('nan')):.3f} / "
+        f"{rec_u.get('dec_ms', float('nan')):.3f} ms, peak memory "
+        f"{rec_u['peak'] / 2**30:.3f} GiB; {int((x_hat_want > SP_THR).sum())}"
+        f" voxels over {SP_THR}")
+    with tempfile.TemporaryDirectory() as tmp:
+        def rendezvous(name):
+            return (Path(tmp) / name).resolve().as_uri()
+
+        # 1. world 1 on nccl: zero halos, the unsharded executable's convs
+        kernels.reset_launches()
+        with process_group(0, 1, rendezvous("rdv_sp1"), device) as (
+                group, dev):
+            backend = torch.distributed.get_backend(group)
+            whole, x_hat, x_hat_dec, rec_1 = sp_coding(model, x, group, dev)
+            counts = dict(kernels.launches)
+            if device.type == "cuda":
+                # one rank's slab alone: the convs of a world-2 rank, with
+                # zero planes for halos, and no other process on the card
+                half = _half_slab_ms(model, x, whole["y_sym"], group)
+        assert backend == backend_for(device, 1), backend
+        assert not any(counts.values()), counts
+        for k, v in want.items():
+            assert torch.equal(whole[k], v), f"world 1: {k} differs"
+        assert torch.equal(x_hat, x_hat_want), "world 1: x_hat differs"
+        assert torch.equal(x_hat_dec, x_hat), "world 1: decoder x_hat"
+        log(f"sp at world 1 on {backend}: symbols and x_hat bit-equal to the "
+            f"unsharded encode and decode, the round trip's "
+            f"{rec_1['bytes']} bytes decoded bit-exactly; encode "
+            f"{rec_1['enc_s']:.4f} s, decode {rec_1['dec_s']:.4f} s on "
+            f"{card}; no kernel launched")
+        if device.type == "cuda":
+            log(f"sp one world-{SP_WORLD} slab alone at world 1: device ms "
+                f"encode {half[0]:.3f}, decode {half[1]:.3f} [{card}]")
+        del whole, x_hat, x_hat_dec
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # 2. SP_WORLD ranks sharing the card over gloo
+        x_path = Path(tmp) / "cell.npy"
+        np.save(x_path, x_np)
+        t0 = time.time()
+        spawn_ranks(_sp_rank, SP_WORLD, (SP_WORLD, rendezvous("rdv_sp"),
+                                         device.type, str(x_path), tmp),
+                    SP_TIMEOUT_S)
+        t_ranks = time.time() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(SP_WORLD)]
+        with np.load(Path(tmp) / "syms.npz") as z:
+            got = {k: z[k] for k in z.files}
+    assert {r["backend"] for r in ranks} == {backend_for(device, SP_WORLD)}
+    assert all(r["x_hat_equal"] and r["masks_equal"] for r in ranks), ranks
+    assert len({r["bytes"] for r in ranks}) == 1, ranks
+    mismatch = {}
+    for k, v in want.items():
+        v = v.cpu().numpy()
+        assert got[k].shape == v.shape, (k, got[k].shape, v.shape)
+        mismatch[k] = float(np.mean(got[k] != v))
+        assert mismatch[k] < SP_MISMATCH, (k, mismatch[k])
+    occupied = sum(r["occupied"] for r in ranks)
+
+    def per_rank(key, fmt, scale=1):
+        return ", ".join(format(r.get(key, float("nan")) / scale, fmt)
+                         for r in ranks)
+
+    log(f"sp at world {SP_WORLD} on {card}, {ranks[0]['backend']} ranks "
+        f"sharing {ranks[0]['device']} ({t_ranks:.1f} s with the processes' "
+        f"start): symbols differing from the unsharded ones {mismatch} "
+        f"(bound {SP_MISMATCH}); round trip of {ranks[0]['bytes']} bytes: "
+        f"each rank's decoder x_hat bit-equal to its encoder's, masks at "
+        f"{SP_THR} equal ({occupied} voxels, unsharded "
+        f"{int((x_hat_want > SP_THR).sum())})")
+    log(f"sp walls s, encode: ranks {per_rank('enc_s', '.4f')} against "
+        f"{rec_u['enc_s']:.4f} unsharded; decode: ranks "
+        f"{per_rank('dec_s', '.4f')} against {rec_u['dec_s']:.4f} [{card}]")
+    log(f"sp device ms (two processes time-slicing the card), encode: ranks "
+        f"{per_rank('enc_ms', '.3f')} against "
+        f"{rec_u.get('enc_ms', float('nan')):.3f}; decode: ranks "
+        f"{per_rank('dec_ms', '.3f')} against "
+        f"{rec_u.get('dec_ms', float('nan')):.3f} [{card}]")
+    log(f"sp peak memory GiB: ranks {per_rank('peak', '.3f', 2**30)} "
+        f"against {rec_u['peak'] / 2**30:.3f} unsharded "
+        f"({max(r['peak'] for r in ranks) / max(rec_u['peak'], 1):.3f}x) "
+        f"[{card}]")
+    del model, x, want, x_hat_want
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 3. the dry run
+    t0 = time.time()
+    log(f"dryrun_multichip({DRYRUN_WORLD}) on {card}:")
+    dry = dryrun_multichip(DRYRUN_WORLD, device=device.type)
+    log(f"  {time.time() - t0:.1f} s with the processes' start [{card}]; "
+        f"{dry[0]['backend']} on {sorted({r['device'] for r in dry})}; sp "
+        f"symbols differing {dry[0]['sp']['mismatch']}, nonzero "
+        f"{dry[0]['sp']['nonzero']}")
+    log(f"phase 19: {time.time() - t_phase:.1f} s [{card}]")
     return counts
 
 
@@ -2278,12 +2540,17 @@ def run(device):
     torch.cuda.empty_cache()
     counts_dp = check_data_parallel(device, blocks)
 
+    # phase 19: spatial sharding of a 256³ cell, then the dry run
+    torch.cuda.empty_cache()
+    counts_sp = check_spatial(device, points, card)
+
     by_path = {"d1": counts_d1, "A": counts_a, "B": counts_b, "C": counts_c,
                "C_bf16": counts_cb, "c2": counts_v1["c2"],
                "c1": counts_v1["c1"], "host_fixed": counts_hf,
                "host_cut": counts_hc, "point_d2_cut": counts_pd,
                "trained_c3p": counts_tr, **counts_bench,
-               "round_robin": counts_rr, "dp_nccl1": counts_dp}
+               "round_robin": counts_rr, "dp_nccl1": counts_dp,
+               "sp_nccl1": counts_sp}
     for name, shapes in k4.items():
         # headline numbers: f32 at the stage with the most work
         top = max((r for r in shapes if r["dtype"] == "f32"),

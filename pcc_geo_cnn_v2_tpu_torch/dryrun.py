@@ -238,7 +238,7 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
     fn, example = entry(args.device)
-    print(f"entry loss: {float(fn(*example))}", flush=True)
+    print(f"entry loss: {fn(*example).item()}", flush=True)
     dryrun_multichip(args.n_devices, args.device)
     return 0
 

@@ -25,8 +25,8 @@ def pad_to_multiple(arr: np.ndarray, multiple: int, axis=0):
     the original length); the port's copy of the JAX helper. Nothing in
     the port calls it: the data-parallel trainer pads nothing
     (:func:`shard_rows` refuses an indivisible batch), and the spatial
-    axis refuses an indivisible depth, as JAX's asserts it
-    (``spatial.py:80``, ``:131``)."""
+    axis refuses an indivisible depth, where JAX's asserts that it divides
+    (``pcc_geo_cnn_v2_tpu/parallel/spatial.py:84``, ``:135``)."""
     n = arr.shape[axis]
     rem = (-n) % multiple
     if rem == 0:

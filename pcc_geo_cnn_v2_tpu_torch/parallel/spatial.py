@@ -46,7 +46,11 @@ import torch.nn.functional as F
 
 from pcc_geo_cnn_v2_tpu_torch.codec import deterministic_convs
 from pcc_geo_cnn_v2_tpu_torch.coding import range_coder as rc
-from pcc_geo_cnn_v2_tpu_torch.models.codec_models import CompressionModelV2
+from pcc_geo_cnn_v2_tpu_torch.models.codec_models import (
+    CompressionModelV2,
+    _to_ncdhw,
+    _to_ndhwc,
+)
 from pcc_geo_cnn_v2_tpu_torch.models.entropy import (
     build_factorized_cdf,
     build_gaussian_cdf,
@@ -202,14 +206,6 @@ def _check_stack(t):
                 f"{t.residual_mode!r}")
     elif not isinstance(t, (AnalysisTransformV1, SynthesisTransformV1)):
         raise NotImplementedError(type(t).__name__)
-
-
-def _to_ncdhw(x):
-    return x.permute(0, 4, 1, 2, 3).contiguous()
-
-
-def _to_ndhwc(x):
-    return x.permute(0, 2, 3, 4, 1).contiguous()
 
 
 @torch.no_grad()

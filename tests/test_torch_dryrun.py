@@ -59,14 +59,14 @@ def test_entry_matches_jax_entry():
     fn, (model, pts, noise_t) = dryrun.entry("cpu", params=params,
                                              noise=noise)
     assert np.array_equal(pts.numpy(), np.asarray(points))
-    got = float(fn(model, pts, noise_t))
+    got = fn(model, pts, noise_t).item()
     assert abs(got - want) <= REL * abs(want), (got, want)
 
 
 def test_entry_defaults_are_seeded():
     fn, args = dryrun.entry("cpu")
     fn2, args2 = dryrun.entry("cpu")
-    a, b = float(fn(*args)), float(fn2(*args2))
+    a, b = fn(*args).item(), fn2(*args2).item()
     assert np.isfinite(a) and a == b
     assert tuple(args[2]["noise_y"].shape) == (1, 8, 8, 8, 64)
     assert tuple(args[2]["noise_z"].shape) == (1, 4, 4, 4, 64)
