@@ -1639,7 +1639,6 @@ def _dp_rank(rank, init_method, cfg, batches, out_dir, device):
     parameters' digest, the step's seconds) a step to ``rank<r>.json`` in
     ``out_dir``, and rank 0 the summed gradients of step 1 (that path +
     ``.grads``)."""
-    out_path = str(Path(out_dir) / f"rank{rank}.json")
     import os
     import tempfile
 
@@ -1648,6 +1647,8 @@ def _dp_rank(rank, init_method, cfg, batches, out_dir, device):
     from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
     from pcc_geo_cnn_v2_tpu_torch.parallel.mesh import process_group
     from pcc_geo_cnn_v2_tpu_torch.training import Trainer
+
+    out_path = str(Path(out_dir) / f"rank{rank}.json")
 
     # the ranks share the host's cores (oversubscribed, a CPU rank's step
     # took 70x the single process's)
@@ -1966,11 +1967,10 @@ def check_spatial(device, points, card):
             f"{rec_1['bytes']} bytes decoded bit-exactly; encode "
             f"{rec_1['enc_s']:.4f} s, decode {rec_1['dec_s']:.4f} s on "
             f"{card}; no kernel launched")
+        del whole, x_hat, x_hat_dec
         if device.type == "cuda":
             log(f"sp one world-{SP_WORLD} slab alone at world 1: device ms "
                 f"encode {half[0]:.3f}, decode {half[1]:.3f} [{card}]")
-        del whole, x_hat, x_hat_dec
-        if device.type == "cuda":
             torch.cuda.empty_cache()
 
         # 2. SP_WORLD ranks sharing the card over gloo
