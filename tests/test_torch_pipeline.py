@@ -266,3 +266,182 @@ def test_run_experiment_command_matches_jax(monkeypatch):
     assert want[2] == "pcc_geo_cnn_v2_tpu.cli.ev_experiment"
     assert got[2] == "pcc_geo_cnn_v2_tpu_torch.cli.ev_experiment"
     assert _strip_device(got)[3:] == want[3:]
+
+
+# -- ev_compare / ev_run_compare ------------------------------------------------
+
+
+MODES = ("c3p-a0.75", "c3p-train", "anchor")
+
+
+def _report_tree(root, seed):
+    """Seeded reports: two clouds × three modes × four λ; ``anchor`` has no
+    d2-group report on the second cloud, one point of c3p-train is left out by
+    ``bd_ignore``."""
+    rng = np.random.default_rng(seed)
+    for pc in ("figure_200", "figure_201"):
+        for k, mode in enumerate(MODES):
+            bpp = np.sort(rng.uniform(0.05, 2.0, 4))
+            psnr = 55 + 6 * np.log(bpp) + 3 * k + rng.normal(0, 0.2, 4)
+            for lam, (b, p) in enumerate(zip(bpp, psnr)):
+                d = root / pc / mode / tta.lmbda_tag(10.0 ** -(lam + 2))
+                d.mkdir(parents=True)
+                rep = {"bpp": float(b), "d1_psnr": float(p),
+                       "d2_psnr": float(p + 4), "pc_name": pc}
+                (d / "report_d1.json").write_text(json.dumps(
+                    {**rep, "opt_group": "d1"}))
+                if not (mode == "anchor" and pc == "figure_201"):
+                    (d / "report_d2.json").write_text(json.dumps(
+                        {**rep, "bpp": float(b * 1.01), "opt_group": "d2"}))
+    spec = {"experiment_dir": str(root),
+            "data": [{"pc_name": "figure_200"}, {"pc_name": "figure_201"},
+                     {"pc_name": "absent"}],
+            "bd_ignore": ["c3p-train/1.00e-03"]}
+    yml = root.parent / f"{root.name}.yml"
+    yml.write_text(yaml.safe_dump(spec))
+    return yml
+
+
+@pytest.mark.parametrize("plot", [False, True])
+def test_ev_run_compare_csvs_match_jax_byte_for_byte(tmp_path, plot):
+    from pcc_geo_cnn_v2_tpu.cli import ev_run_compare as jax_erc
+    from pcc_geo_cnn_v2_tpu_torch.cli import ev_run_compare as erc
+
+    extra = ["--metrics", "d1_psnr", "d2_psnr"] + ([] if plot else
+                                                   ["--no_plot"])
+    jax_erc.main([str(_report_tree(tmp_path / "jax", 3))] + extra)
+    erc.main([str(_report_tree(tmp_path / "port", 3))] + extra)
+    want = sorted(p.name for p in (tmp_path / "jax/results").iterdir())
+    got = sorted(p.name for p in (tmp_path / "port/results").iterdir())
+    assert got == want
+    csvs = [n for n in got if n.endswith(".csv")]
+    assert {"data.csv", "bdrate.csv", "bdsnr.csv",
+            "figure_201_d2_psnr_bdrate.csv"} <= set(csvs)
+    for name in csvs:
+        assert (tmp_path / "port/results" / name).read_bytes() == \
+            (tmp_path / "jax/results" / name).read_bytes(), name
+    if plot:
+        assert {"legend.png", "figure_200_d1_psnr_rd.png"} <= set(got)
+
+
+@pytest.mark.parametrize("metric,group", [("d1_psnr", "d1"),
+                                          ("d2_psnr", "d1"),
+                                          ("d2_psnr", "d2")])
+@pytest.mark.parametrize("pc", ["figure_200", "figure_201"])
+def test_load_curves_and_bd_matrices_match_jax(tmp_path, metric, group, pc):
+    from pcc_geo_cnn_v2_tpu.cli import ev_compare as jax_ec
+    from pcc_geo_cnn_v2_tpu_torch.cli import ev_compare as ec
+
+    _report_tree(tmp_path / "exp", 4)
+    args = (tmp_path / "exp", pc, metric, group)
+    kw = dict(bd_ignore=["c3p-train/1.00e-03"])
+    curves = ec.load_curves(*args, **kw)
+    assert curves == jax_ec.load_curves(*args, **kw)
+    assert len(curves["c3p-train"]) == 3
+    for pchip in (True, False):
+        got = ec.bd_matrices(curves, pchip=pchip)
+        want = jax_ec.bd_matrices(curves, pchip=pchip)
+        for g, w in zip(got, want):
+            assert list(g.index) == list(w.index) == sorted(curves)
+            assert list(g.columns) == list(w.columns)
+            g, w = g.to_numpy(), w.to_numpy()
+            assert np.array_equal(np.isnan(g), np.isnan(w))
+            ok = ~np.isnan(w)
+            assert ok.sum() >= 2
+            np.testing.assert_allclose(g[ok], w[ok], rtol=0, atol=1e-12)
+
+
+def test_read_log_and_style_for_match_jax(tmp_path):
+    from pcc_geo_cnn_v2_tpu.cli import ut_train_plots as jax_utp
+    from pcc_geo_cnn_v2_tpu.utils import plots as jax_plots
+    from pcc_geo_cnn_v2_tpu_torch.cli import ut_train_plots as utp
+    from pcc_geo_cnn_v2_tpu_torch.utils import plots
+
+    rng = np.random.default_rng(2)
+    log = tmp_path / "train_log.jsonl"
+    with open(log, "w") as f:
+        for step in range(1, 40):
+            split = "val" if step % 7 == 0 else "train"
+            rec = {"step": step, "split": split,
+                   "loss": float(rng.random()), "mbpov": int(step * 3),
+                   "note": "x"}
+            if step % 3:
+                rec["focal_loss"] = float(rng.random())
+            f.write(json.dumps(rec) + "\n")
+    for split in ("train", "val", "rehydrated_from_assets"):
+        assert utp.read_log(log, split) == jax_utp.read_log(log, split)
+    modes = [f"m{i}" for i in range(45)]
+    for mode in modes + ["other"]:
+        assert plots.style_for(mode, modes) == \
+            jax_plots.style_for(mode, modes)
+    cyc, jcyc = plots.style_cycle(), jax_plots.style_cycle()
+    assert [next(cyc) for _ in range(90)] == [next(jcyc) for _ in range(90)]
+
+
+# -- one real run through child processes ---------------------------------------------
+
+
+def test_train_sweep_experiments_and_compare_through_children(
+        tmp_path, monkeypatch):
+    """JAX ``tests/test_pipeline.py`` on the port, ``--device cpu``: c1 at
+    8 filters trained on 16³ blocks, two λ in warm_seq; the experiments on
+    a 32³ cloud two at a time; the rerun of both starts no child; the
+    comparison and the training plots."""
+    from pcc_geo_cnn_v2_tpu_torch.cli import ev_run_compare as erc
+    from pcc_geo_cnn_v2_tpu_torch.cli import ut_train_plots as utp
+    from pcc_geo_cnn_v2_tpu_torch.utils import pc_io
+    from pcc_geo_cnn_v2_tpu_torch.utils.data import synthetic_blocks
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the children's torch
+    monkeypatch.chdir(REPO)
+    blocks_dir = tmp_path / "blocks"
+    blocks_dir.mkdir()
+    for i, b in enumerate(synthetic_blocks(16, block_size=16, seed=0)):
+        pc_io.write_ply(blocks_dir / f"b{i:02d}.ply", b)
+    rng = np.random.default_rng(1)
+    cloud = np.unique(rng.integers(0, 32, (800, 3)), axis=0).astype(float)
+    pc_io.write_ply(tmp_path / "cloud.ply", cloud)
+    spec = {
+        "train_glob": str(blocks_dir / "*.ply"),
+        "experiment_dir": str(tmp_path / "experiments"),
+        "model_dir": str(tmp_path / "models"),
+        "resolution": 32, "octree_level": 1, "opt_metrics": ["d1_mse"],
+        "data": [{"pc_name": "cloud", "input_pc": str(tmp_path / "cloud.ply")}],
+        "model_configs": [
+            {"id": "c1-t", "config": "c1", "num_filters": 8,
+             "resolution": 16, "batch_size": 2, "max_steps": 6,
+             "lambdas": [1e-4, 3e-4], "train_mode": "warm_seq"}],
+    }
+    yml = tmp_path / "experiment.yml"
+    yml.write_text(yaml.safe_dump(spec))
+    train = [str(yml), spec["model_dir"], "--device", "cpu",
+             "--extra_args", "--val_every 3 --val_batches 1"]
+    tta.main(train)
+    runs = sorted(Path(spec["model_dir"]).glob("c1-t/*/done"))
+    assert [p.parent.name for p in runs] == ["1.00e-04", "3.00e-04"]
+
+    ere.main([str(yml), "--num_parallel", "2", "--device", "cpu"])
+    reports = sorted(Path(spec["experiment_dir"]).glob("**/report_d1.json"))
+    assert len(reports) == 2
+    for path in reports:
+        rep = json.loads(path.read_text())
+        assert {"bpp", "d1_psnr", "pos_total_size_in_bytes",
+                "input_point_count"} <= set(rep)
+        assert rep["input_point_count"] == len(cloud) and rep["bpp"] > 0
+
+    def no_child(*a, **k):
+        raise AssertionError("a rerun started a child")
+
+    monkeypatch.setattr(subprocess, "run", no_child)
+    monkeypatch.setattr(subprocess, "Popen", no_child)
+    tta.main(train)
+    ere.main([str(yml), "--num_parallel", "1", "--device", "cpu"])
+    monkeypatch.undo()
+
+    erc.main([str(yml), "--metrics", "d1_psnr"])
+    results = Path(spec["experiment_dir"]) / "results"
+    for name in ("data.csv", "cloud_d1_psnr_rd.png", "bdrate.csv",
+                 "legend.png"):
+        assert (results / name).exists(), name
+    utp.main([spec["model_dir"], str(tmp_path / "plots")])
+    assert (tmp_path / "plots" / "train_loss.png").exists()
