@@ -310,3 +310,149 @@ int64_t pcc_rc_decode_lut_batch(
 
 }  // extern "C"
 
+// ---------------------------------------------------------------------------
+// Context-adaptive binary range coder (for the builtin octree anchor).
+//
+// G-PCC's octree geometry mode codes child-occupancy bits with a
+// context-adaptive binary arithmetic coder (the reference invokes the real
+// tmc3 binary for this, its src/mp_run.py:33-41). This is the same coder
+// family: an LZMA-style binary range coder (12-bit adaptive
+// probabilities, shift-5 update, byte renormalization with carry cache).
+// Encoder and decoder adapt identically, so no tables are transmitted.
+// Probabilities live in the handle; the decoder is stateful because octree
+// contexts depend on previously decoded planes/levels (the caller
+// interleaves vectorized context computation with per-plane decode calls).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr uint32_t kProbBits = 12;
+constexpr uint16_t kProbInit = 1u << (kProbBits - 1);
+constexpr uint32_t kMoveBits = 5;
+constexpr uint32_t kTopValue = 1u << 24;
+
+struct BinEnc {
+  uint64_t low = 0;
+  uint32_t range = 0xFFFFFFFFu;
+  uint8_t cache = 0;
+  int64_t cache_size = 1;
+  std::vector<uint8_t> out;
+
+  inline void shift_low() {
+    if (static_cast<uint32_t>(low) < 0xFF000000u || (low >> 32) != 0) {
+      uint8_t carry = static_cast<uint8_t>(low >> 32);
+      uint8_t temp = cache;
+      do {
+        out.push_back(static_cast<uint8_t>(temp + carry));
+        temp = 0xFF;
+      } while (--cache_size);
+      cache = static_cast<uint8_t>(low >> 24);
+    }
+    ++cache_size;
+    low = (low << 8) & 0xFFFFFFFFu;
+  }
+
+  inline void encode(uint16_t* p, uint32_t bit) {
+    const uint32_t bound = (range >> kProbBits) * (*p);
+    if (!bit) {
+      range = bound;
+      *p += (static_cast<uint16_t>(1u << kProbBits) - *p) >> kMoveBits;
+    } else {
+      low += bound;
+      range -= bound;
+      *p -= *p >> kMoveBits;
+    }
+    while (range < kTopValue) {
+      shift_low();
+      range <<= 8;
+    }
+  }
+
+  inline void flush() {
+    for (int i = 0; i < 5; ++i) shift_low();
+  }
+};
+
+struct BinDec {
+  const uint8_t* in;
+  int64_t in_len;
+  int64_t pos = 0;
+  uint32_t range = 0xFFFFFFFFu;
+  uint32_t code = 0;
+  std::vector<uint16_t> probs;
+
+  inline uint8_t next_byte() { return pos < in_len ? in[pos++] : 0; }
+
+  void init() {
+    next_byte();  // first emitted byte is always 0 (cache priming)
+    for (int i = 0; i < 4; ++i) code = (code << 8) | next_byte();
+  }
+
+  inline uint32_t decode(uint16_t* p) {
+    const uint32_t bound = (range >> kProbBits) * (*p);
+    uint32_t bit;
+    if (code < bound) {
+      range = bound;
+      *p += (static_cast<uint16_t>(1u << kProbBits) - *p) >> kMoveBits;
+      bit = 0;
+    } else {
+      code -= bound;
+      range -= bound;
+      *p -= *p >> kMoveBits;
+      bit = 1;
+    }
+    while (range < kTopValue) {
+      range <<= 8;
+      code = (code << 8) | next_byte();
+    }
+    return bit;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// One-shot contextual encode of n bits; returns bytes written or -1 if
+// out_capacity is too small / a context id is out of range.
+int64_t pcc_abc_encode(const uint8_t* bits, const int32_t* ctxs, int64_t n,
+                       int64_t n_ctx, uint8_t* out, int64_t out_capacity) {
+  std::vector<uint16_t> probs(static_cast<size_t>(n_ctx), kProbInit);
+  BinEnc enc;
+  enc.out.reserve(static_cast<size_t>(n / 4 + 16));
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t c = ctxs[i];
+    if (c < 0 || c >= n_ctx) return -1;
+    enc.encode(&probs[c], bits[i] & 1u);
+  }
+  enc.flush();
+  if (static_cast<int64_t>(enc.out.size()) > out_capacity) return -1;
+  std::memcpy(out, enc.out.data(), enc.out.size());
+  return static_cast<int64_t>(enc.out.size());
+}
+
+// Stateful decoder: contexts for later planes depend on decoded bits.
+void* pcc_abc_dec_new(const uint8_t* in, int64_t in_len, int64_t n_ctx) {
+  BinDec* d = new BinDec();
+  d->in = in;
+  d->in_len = in_len;
+  d->probs.assign(static_cast<size_t>(n_ctx), kProbInit);
+  d->init();
+  return d;
+}
+
+int64_t pcc_abc_dec_bits(void* handle, const int32_t* ctxs, int64_t n,
+                         uint8_t* bits_out) {
+  BinDec* d = static_cast<BinDec*>(handle);
+  const int64_t n_ctx = static_cast<int64_t>(d->probs.size());
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t c = ctxs[i];
+    if (c < 0 || c >= n_ctx) return -1;
+    bits_out[i] = static_cast<uint8_t>(d->decode(&d->probs[c]));
+  }
+  return 0;
+}
+
+void pcc_abc_dec_free(void* handle) { delete static_cast<BinDec*>(handle); }
+
+}  // extern "C"

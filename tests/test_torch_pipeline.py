@@ -47,6 +47,49 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+# -- imports -----------------------------------------------------------------
+
+SLICE_MODULES = (
+    "utils.parallel_process", "utils.experiment", "utils.plots",
+    "cli.tr_train_all", "cli.map_color", "cli.ev_experiment",
+    "cli.ev_run_experiment", "cli.ev_compare", "cli.ev_run_compare",
+    "cli.ut_train_plots", "coding.binary_coder", "coding.octree_anchor",
+    "cli.mp_report", "cli.mp_run")
+
+
+@pytest.fixture(scope="module")
+def imported_without_optional_packages():
+    """Every module of the slice imported in a child where PyYAML, pandas
+    and matplotlib cannot be imported (the card's machine may lack them):
+    {module: error text or None}."""
+    code = """
+import importlib, json, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("yaml", "pandas", "matplotlib"):
+            raise ImportError(f"blocked {name}")
+sys.meta_path.insert(0, Block())
+out = {}
+for m in sys.argv[1:]:
+    try:
+        importlib.import_module("pcc_geo_cnn_v2_tpu_torch." + m)
+        out[m] = None
+    except Exception as e:
+        out[m] = repr(e)
+print(json.dumps(out))
+"""
+    proc = subprocess.run([sys.executable, "-c", code, *SLICE_MODULES],
+                          cwd=REPO, capture_output=True, text=True,
+                          check=True, timeout=120)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_module_imports_without_yaml_pandas_matplotlib(
+        imported_without_optional_packages, module):
+    assert imported_without_optional_packages[module] is None
+
+
 # -- parallel_process --------------------------------------------------------
 
 
