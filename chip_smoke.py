@@ -173,10 +173,33 @@ exit):
    the decode are printed beside the unsharded ones. Then
    ``dryrun.dryrun_multichip(4)``: one data-parallel c3p step and the
    sp-sharded encode of a 64³ block, over four gloo ranks on the card.
+20. The RD experiment pipeline (``cli/tr_train_all``, ``cli/ev_experiment``,
+   ``cli/ev_run_experiment``, ``cli/decompress``, ``cli/mp_run``,
+   ``cli/ev_compare.load_curves``, ``utils/bd``) on the 10-bit
+   ``figure_cloud(200)`` (tools/rd_eval.py's first evaluation cloud) at
+   octree level 4, the d1 group, c3p at 64 filters. The train sweep: model
+   config ``c3p-train``, λ 1e-4 and 3e-4 in warm_seq (the first run resumed
+   from a ``ckpt_0`` of the committed 1e-4 weights), a few steps each at
+   64³ blocks of the cloud, two ``cli.train`` children: both ``done``, the
+   second started with ``--warm_start`` of the first, a second call starts
+   no child. The experiments over the committed ``c3p-a0.75`` ladder (five
+   λ, symlinked assets) and ``c3p-train``: the first ladder λ in this
+   process, counted (K1 launched, K2 one call, K3 / K4a / K4b / K5 not),
+   the other six as ``ev_experiment`` children two at a time on the card;
+   seven ``report_d1.json`` with the JAX package's keys (each child holds
+   its encoder-side D1 PSNR within 0.01 dB of the host KD-tree's), a
+   second call starts no child. Every stream decoded in this process by
+   ``cli/decompress`` equals its ``.dec.ply``. The built-in octree anchor
+   (``mp_run --tmc3 builtin``) at rd_eval's eight scales, each stream
+   decoded by ``anchor_decode`` equal to mp_run's PLY. The ladder's bpp and
+   D1 PSNR fall as λ falls; its BD-rate against the anchor is finite and
+   negative. The points are printed beside the JAX package's committed
+   rows for the cloud (``results/rd_c3p_a075.json``), with each stage's
+   wall seconds and the card.
 
 The launch counts are set to 0 just before each path and read just after
-(for the bench, inside its process, around its timed window). Phases 12-19
-print their seconds.
+(for the bench, inside its process, around its timed window; for phase 20,
+around its in-process experiment). Phases 12-20 print their seconds.
 Prints a ``kernels`` JSON line (per kernel: launches on its path and on
 every path, max error against the plain version, its median time (K1,
 K2, K3, K4 and K5 per call in bursts of four calls, so that the wrapper's
@@ -2035,6 +2058,331 @@ def check_spatial(device, points, card):
     return counts
 
 
+# phase 20: the RD experiment pipeline on the committed c3p-a0.75 λ ladder
+# and on a c3p-train sweep, on figure_cloud(RD_SEED) (tools/rd_eval.py's
+# first evaluation cloud, whose JAX rows are in RD_RESULTS), the d1 group
+RD_SEED = 200
+RD_LADDER = REPO / "pcc_geo_cnn_v2_tpu/assets/rd/c3p-a0.75"
+RD_RESULTS = REPO / "results/rd_c3p_a075.json"
+RD_LAMBDAS = (1e-5, 2e-5, 5e-5, 1e-4, 3e-4)
+# the sweep: two λ in warm_seq, the first resumed from the ladder's weights
+# at its λ (a ckpt_0 written into its run directory, as the JAX package's
+# tools/assets_to_ckpt.py rehydrates one), RD_TRAIN_STEPS steps each at
+# batch RD_TRAIN_BATCH on RD_TRAIN_BLOCKS blocks of the cloud
+RD_TRAIN_LAMBDAS = (1e-4, 3e-4)
+RD_TRAIN_BLOCKS, RD_TRAIN_BATCH, RD_TRAIN_STEPS = 24, 8, 3
+RD_NUM_PARALLEL = 2
+# tools/rd_eval.py's anchor scales
+RD_ANCHOR_SCALES = (0.96875, 0.9375, 0.875, 0.75, 0.5, 0.25, 0.125, 0.0625)
+RD_TRAIN_TIMEOUT_S, RD_RUN_TIMEOUT_S = 300, 600
+RD_REPORT_KEYS = {"pc_name", "model_config", "opt_group",
+                  "pos_total_size_in_bytes", "input_point_count", "bpp",
+                  "d1_mse", "d1_psnr"}
+
+
+class deadline:
+    """Raise TimeoutError in the main thread after ``seconds`` (SIGALRM):
+    ``subprocess.run`` kills its child on the way out, ``parallel_process``
+    terminates its children."""
+
+    def __init__(self, seconds, what):
+        self.seconds, self.what = seconds, what
+
+    def _fire(self, *_):
+        raise TimeoutError(f"{self.what}: over {self.seconds} s")
+
+    def __enter__(self):
+        import signal
+
+        self.old = signal.signal(signal.SIGALRM, self._fire)
+        signal.alarm(self.seconds)
+
+    def __exit__(self, *exc):
+        import signal
+
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, self.old)
+
+
+class recorded:
+    """Record the child commands started through ``module.attr`` (a
+    ``subprocess.run`` or a ``Popen`` class) while the block runs."""
+
+    def __init__(self, module, attr):
+        self.module, self.attr, self.cmds = module, attr, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.attr)
+
+        def call(cmd, *a, **k):
+            self.cmds.append([str(c) for c in cmd])
+            return self.real(cmd, *a, **k)
+
+        setattr(self.module, self.attr, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.real)
+
+
+def rd_train_blocks(points, out_dir):
+    """RD_TRAIN_BLOCKS blocks of the cloud, evenly spread, as training
+    PLYs (block-local coordinates)."""
+    from pcc_geo_cnn_v2_tpu_torch.utils import pc_io
+    from pcc_geo_cnn_v2_tpu_torch.utils.octree import partition_octree
+
+    blocks, _ = partition_octree(points, [0, 0, 0], [RESOLUTION] * 3, LEVEL)
+    pick = np.linspace(0, len(blocks) - 1, RD_TRAIN_BLOCKS).astype(int)
+    for i, b in enumerate(pick):
+        pc_io.write_ply(out_dir / f"b{i:03d}.ply", blocks[b])
+    return len(blocks)
+
+
+def check_rd_pipeline(device, card, expect_launches):
+    """Phase 20 (module docstring). Returns the launch counts of the
+    in-process experiment."""
+    import importlib.util
+    import os
+    import tempfile
+
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.cli import decompress as cli_decompress
+    from pcc_geo_cnn_v2_tpu_torch.cli import ev_experiment, mp_run
+    from pcc_geo_cnn_v2_tpu_torch.cli.ev_compare import load_curves
+    from pcc_geo_cnn_v2_tpu_torch.cli.ev_run_experiment import (
+        run_experiments,
+    )
+    from pcc_geo_cnn_v2_tpu_torch.cli.tr_train_all import lmbda_tag, train_all
+    from pcc_geo_cnn_v2_tpu_torch.coding.octree_anchor import anchor_decode
+    from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
+    from pcc_geo_cnn_v2_tpu_torch.ops import kernels
+    from pcc_geo_cnn_v2_tpu_torch.training import TrainConfig, Trainer
+    from pcc_geo_cnn_v2_tpu_torch.utils import parallel_process, pc_io
+    from pcc_geo_cnn_v2_tpu_torch.utils.bd import bdrate, bdsnr
+    from pcc_geo_cnn_v2_tpu_torch.utils.scansim import figure_cloud
+
+    t_phase = time.time()
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("yaml", "pandas", "matplotlib")}
+    log(f"phase 20 on {card}: optional packages present {have} (the phase "
+        f"needs none of them)")
+    # the children resolve ``-m pcc_geo_cnn_v2_tpu_torch...`` from here
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.time()
+        points = figure_cloud(RD_SEED, RESOLUTION, with_normals=False)
+        cloud = tmp / f"figure_{RD_SEED}.ply"
+        pc_io.write_ply(cloud, points)
+        (tmp / "blocks").mkdir()
+        n_blocks = rd_train_blocks(points, tmp / "blocks")
+        model_dir, exp_dir = tmp / "models", tmp / "experiments"
+        for lam in RD_LAMBDAS:  # the committed ladder, evaluated in place
+            link = model_dir / "c3p-a0.75" / lmbda_tag(lam)
+            link.parent.mkdir(parents=True, exist_ok=True)
+            link.symlink_to(RD_LADDER / f"{lmbda_tag(lam)}.msgpack.gz")
+        walls["set-up"] = time.time() - t0
+        log(f"figure_{RD_SEED}: {len(points)} points, {n_blocks} blocks of "
+            f"{BLOCK}^3; {RD_TRAIN_BLOCKS} of them written as training "
+            f"blocks ({walls['set-up']:.1f} s)")
+
+        # 1. the train sweep
+        first = model_dir / "c3p-train" / lmbda_tag(RD_TRAIN_LAMBDAS[0])
+        Trainer(build_model("c3p"), TrainConfig(block_size=BLOCK), first,
+                warm_start=model_dir / "c3p-a0.75" / lmbda_tag(
+                    RD_TRAIN_LAMBDAS[0]), device=device).save(0)
+        spec = {
+            "train_glob": str(tmp / "blocks" / "*.ply"),
+            "experiment_dir": str(exp_dir), "model_dir": str(model_dir),
+            "resolution": RESOLUTION, "octree_level": LEVEL,
+            "opt_metrics": ["d1_mse"],
+            "data": [{"pc_name": cloud.stem, "input_pc": str(cloud)}],
+            "model_configs": [
+                {"id": "c3p-a0.75", "config": "c3p",
+                 "lambdas": list(RD_LAMBDAS)},
+                {"id": "c3p-train", "config": "c3p", "num_filters": 64,
+                 "resolution": BLOCK, "batch_size": RD_TRAIN_BATCH,
+                 "max_steps": RD_TRAIN_STEPS, "train_mode": "warm_seq",
+                 "lambdas": list(RD_TRAIN_LAMBDAS)}],
+        }
+        sweep = {"model_configs": spec["model_configs"][1:],
+                 "train_glob": spec["train_glob"]}
+        extra = ["--val_every", str(RD_TRAIN_STEPS), "--val_batches", "1"]
+        t0 = time.time()
+        with deadline(RD_TRAIN_TIMEOUT_S, "the train sweep"), \
+                recorded(subprocess, "run") as rec:
+            train_all(sweep, model_dir, extra, device)
+        walls["training children"] = time.time() - t0
+        runs = [model_dir / "c3p-train" / lmbda_tag(lam)
+                for lam in RD_TRAIN_LAMBDAS]
+        assert all((r / "done").exists() for r in runs), "a done is missing"
+        assert len(rec.cmds) == 2, rec.cmds
+        second = rec.cmds[1]
+        assert second[second.index("--warm_start") + 1] == str(runs[0]), \
+            second
+        assert "--warm_start" not in rec.cmds[0], rec.cmds[0]
+        with recorded(subprocess, "run") as again:
+            train_all(sweep, model_dir, extra, device)
+        assert not again.cmds, "a second train sweep started a child"
+        steps = [json.loads(ln)["step"] for r in runs for ln in
+                 (r / "train_log.jsonl").read_text().splitlines()]
+        log(f"train sweep: c3p-train at λ {RD_TRAIN_LAMBDAS} in warm_seq, "
+            f"{RD_TRAIN_STEPS} steps each at batch {RD_TRAIN_BATCH} of "
+            f"{BLOCK}^3, two children in {walls['training children']:.1f} "
+            f"s; both done, the second warm-started from the first, a "
+            f"second call started no child; logged steps {steps}")
+
+        # 2. the experiments: the first ladder λ in this process, counted
+        first_dir = exp_dir / cloud.stem / "c3p-a0.75" / lmbda_tag(
+            RD_LAMBDAS[0])
+        argv = ["--output_dir", str(first_dir), "--model_dir",
+                str(model_dir / "c3p-a0.75" / lmbda_tag(RD_LAMBDAS[0])),
+                "--model_config", "c3p", "--input_pc", str(cloud),
+                "--resolution", str(RESOLUTION), "--octree_level",
+                str(LEVEL), "--device", device]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.time()
+        ev_experiment.main(argv)
+        torch.cuda.synchronize()
+        walls["in-process experiment"] = time.time() - t0
+        counts = dict(kernels.launches)
+        log(f"in-process experiment (λ {RD_LAMBDAS[0]:g}): "
+            f"{walls['in-process experiment']:.1f} s; launches {counts}")
+        expect_launches("the rd path", counts, ("bucket_colsums",),
+                        ("bucket_colsums_d2", "edt_sweep", "fused_tail",
+                         "fused_tail_slab"))
+        assert counts["halo_edt"] == 1, counts  # one call a cloud
+
+        # the other six through the job runner, two children at a time
+        t0 = time.time()
+        with deadline(RD_RUN_TIMEOUT_S, "the experiments"), \
+                recorded(parallel_process, "Popen") as rec:
+            run_experiments(spec, RD_NUM_PARALLEL, device)
+        walls["experiment children"] = time.time() - t0
+        n_jobs = len(RD_LAMBDAS) + len(RD_TRAIN_LAMBDAS) - 1
+        assert len(rec.cmds) == n_jobs, rec.cmds
+        with recorded(parallel_process, "Popen") as again:
+            run_experiments(spec, RD_NUM_PARALLEL, device)
+        assert not again.cmds, "a second run started a child"
+        exps = {(mc["id"], lam): exp_dir / cloud.stem / mc["id"] /
+                lmbda_tag(lam)
+                for mc in spec["model_configs"] for lam in mc["lambdas"]}
+        reports = {k: json.loads((d / "report_d1.json").read_text())
+                   for k, d in exps.items()}
+        for key, rep in reports.items():
+            assert set(rep) == RD_REPORT_KEYS, (key, sorted(rep))
+            assert rep["input_point_count"] == len(points), rep
+        log(f"experiments: {n_jobs} children, {RD_NUM_PARALLEL} at a time "
+            f"on the card, in {walls['experiment children']:.1f} s; "
+            f"{len(reports)} report_d1.json with JAX's keys; a second call "
+            f"started no child")
+
+        # 3. each stream decoded in this process equals its .dec.ply
+        t0 = time.time()
+        for (mode, lam), d in exps.items():
+            stream = d / f"{cloud.stem}.d1.bin"
+            out = d / "decoded_again.ply"
+            cli_decompress.main([
+                "--input_files", str(stream), "--output_files", str(out),
+                "--checkpoint_dir", str(model_dir / mode / lmbda_tag(lam)),
+                "--model_config", "c3p", "--device", device])
+            got = pc_io.read_ply(out)[0]
+            want = pc_io.read_ply(d / f"{cloud.stem}.d1.dec.ply")[0]
+            assert got.shape == want.shape and np.array_equal(got, want), \
+                f"{mode} {lam}: the decode differs from the encoder's"
+        walls["decode"] = time.time() - t0
+        log(f"bit-exact: the {len(exps)} streams decoded in this process "
+            f"equal their .dec.ply point for point "
+            f"({walls['decode']:.1f} s)")
+
+        # 4. the built-in anchor at rd_eval's scales
+        t0 = time.time()
+        anchor_dir = tmp / "anchor"
+        mp_run.main([str(cloud), str(anchor_dir), "--tmc3", "builtin",
+                     "--rates", *map(str, RD_ANCHOR_SCALES),
+                     "--resolution", str(RESOLUTION)])
+        anchor = []
+        for scale in RD_ANCHOR_SCALES:
+            run_dir = anchor_dir / "octree" / f"r{scale:g}"
+            rep = json.loads((run_dir / "report.json").read_text())
+            dec, _ = anchor_decode((run_dir / "compressed.bin").read_bytes())
+            written = pc_io.read_ply(run_dir / "decoded.ply")[0]
+            assert np.array_equal(dec, written), f"anchor {scale} decode"
+            anchor.append((scale, rep))
+        walls["anchor"] = time.time() - t0
+        log(f"anchor: {len(anchor)} report.json, each stream decoded by "
+            f"anchor_decode equal to mp_run's decoded.ply "
+            f"({walls['anchor']:.1f} s)")
+
+        # 5. RD and BD against the anchor
+        t0 = time.time()
+        curves = load_curves(exp_dir, cloud.stem, "d1_psnr", "d1")
+        ladder = curves["c3p-a0.75"]
+        by_lam = [reports[("c3p-a0.75", lam)] for lam in RD_LAMBDAS]
+        for lo, hi in zip(by_lam, by_lam[1:]):  # λ ascending
+            assert lo["bpp"] < hi["bpp"] and lo["d1_psnr"] < hi["d1_psnr"], \
+                "the ladder is not monotone in λ"
+        anchor_curve = sorted((r["bpp"], r["d1_psnr"]) for _, r in anchor)
+        rate, snr = bdrate(anchor_curve, ladder), bdsnr(anchor_curve, ladder)
+        assert np.isfinite(rate) and rate < 0, (rate, snr)
+        try:
+            trained = curves["c3p-train"]
+            trained = (f"{bdrate(anchor_curve, trained):.3f}%, "
+                       f"{bdsnr(anchor_curve, trained):.3f} dB")
+        except ValueError as e:  # two points need overlapping ranges
+            trained = f"not defined ({e})"
+        walls["BD"] = time.time() - t0
+
+        # 6. beside the JAX package's committed rows for this cloud
+        jax = json.loads(RD_RESULTS.read_text())
+        name = f"figure_{RD_SEED}"
+        jrows = {r["lmbda"]: r for r in jax["points"]
+                 if r["pc_name"] == name and "opt_group" not in r}
+        log(f"RD on {card}, {name}, d1 group (JAX: {RD_RESULTS.name}; its "
+            f"bpp counts gzip without a file name, the CLI's stream holds "
+            f"{len(cloud.stem) + 8} bytes of it):")
+        for lam, rep in zip(RD_LAMBDAS, by_lam):
+            j = jrows[lam]
+            log(f"  c3p-a0.75 λ {lam:g}: {rep['bpp']:.6f} bpp "
+                f"(JAX {j['bpp']:.6f}, {rep['bpp'] - j['bpp']:+.6f}), D1 "
+                f"{rep['d1_psnr']:.4f} dB (JAX {j['d1_psnr']:.4f}, "
+                f"{rep['d1_psnr'] - j['d1_psnr']:+.4f})")
+        for lam in RD_TRAIN_LAMBDAS:
+            rep = reports[("c3p-train", lam)]
+            log(f"  c3p-train λ {lam:g} ({RD_TRAIN_STEPS} steps): "
+                f"{rep['bpp']:.6f} bpp, D1 {rep['d1_psnr']:.4f} dB")
+        jan = {r["scale"]: r for r in jax["anchor_points"]
+               if r["pc_name"] == name}
+        log(f"anchor beside JAX's rows (mp_run writes the resolution "
+            f"{int(points.max()) + 1} into the stream's header, rd_eval "
+            f"{RESOLUTION}: a header field, the octree and its payload do "
+            f"not depend on it):")
+        for scale, rep in anchor:
+            j = jan[scale]
+            log(f"  scale {scale:g}: {rep['bpp']:.6f} bpp (JAX "
+                f"{j['bpp']:.6f}, {rep['bpp'] - j['bpp']:+.2e}), D1 "
+                f"{rep['d1_psnr']:.4f} dB (JAX {j['d1_psnr']:.4f}, "
+                f"{rep['d1_psnr'] - j['d1_psnr']:+.2e})")
+        jl = [(jrows[lam]["bpp"], jrows[lam]["d1_psnr"]) for lam in
+              RD_LAMBDAS]
+        ja = sorted((r["bpp"], r["d1_psnr"]) for r in jan.values())
+        log(f"BD against the anchor on {name}: c3p-a0.75 BD-rate "
+            f"{rate:.3f}%, BD-PSNR {snr:.3f} dB (JAX's committed rows of "
+            f"this cloud: {bdrate(ja, jl):.3f}%, {bdsnr(ja, jl):.3f} dB); "
+            f"c3p-train {trained}")
+        log(f"ladder points {[(round(b, 6), round(p, 4)) for b, p in ladder]}")
+    walls["phase"] = time.time() - t_phase
+    log("phase 20 walls: " + ", ".join(f"{k} {v:.1f} s"
+                                        for k, v in walls.items())
+        + f" [{card}]")
+    return counts
+
+
 def main():
     import os
 
@@ -2544,13 +2892,17 @@ def run(device):
     torch.cuda.empty_cache()
     counts_sp = check_spatial(device, points, card)
 
+    # phase 20: the RD experiment pipeline on the committed λ ladder
+    torch.cuda.empty_cache()
+    counts_rd = check_rd_pipeline(device, card, expect_launches)
+
     by_path = {"d1": counts_d1, "A": counts_a, "B": counts_b, "C": counts_c,
                "C_bf16": counts_cb, "c2": counts_v1["c2"],
                "c1": counts_v1["c1"], "host_fixed": counts_hf,
                "host_cut": counts_hc, "point_d2_cut": counts_pd,
                "trained_c3p": counts_tr, **counts_bench,
                "round_robin": counts_rr, "dp_nccl1": counts_dp,
-               "sp_nccl1": counts_sp}
+               "sp_nccl1": counts_sp, "rd": counts_rd}
     for name, shapes in k4.items():
         # headline numbers: f32 at the stage with the most work
         top = max((r for r in shapes if r["dtype"] == "f32"),
