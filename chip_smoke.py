@@ -2209,6 +2209,8 @@ def check_rd_pipeline(device, card, expect_launches):
                  "max_steps": RD_TRAIN_STEPS, "train_mode": "warm_seq",
                  "lambdas": list(RD_TRAIN_LAMBDAS)}],
         }
+        # the ladder is committed, not trained: the sweep's spec has only
+        # c3p-train
         sweep = {"model_configs": spec["model_configs"][1:],
                  "train_glob": spec["train_glob"]}
         extra = ["--val_every", str(RD_TRAIN_STEPS), "--val_batches", "1"]
