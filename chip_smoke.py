@@ -2385,6 +2385,275 @@ def check_rd_pipeline(device, card, expect_launches):
     return counts
 
 
+# phase 21: the RD evaluation tools (pcc_geo_cnn_v2_tpu_torch/tools) on the
+# committed ladders: rd_eval --d2_group over RD_LADDER on RD21_SEEDS, its d1
+# group on one λ, --fixed_threshold on the c1 rung, rd_ladder over the two
+# reports, then a cut train sweep, its export and assets_to_ckpt
+RD21_SEEDS = (200, 203)
+RD21_C1_RESULTS = REPO / "results/rd_c1_fixedthr.json"
+# bounds against JAX's committed rows: bpp relative, PSNR in dB, by group
+RD21_BOUNDS = {"d1": (0.005, 0.05, ("d1_psnr", "d1_psnr_host")),
+               "d2": (0.01, 0.1, ("d2_psnr",))}
+RD21_BD_RATE_PTS, RD21_BD_PSNR_DB = 1.0, 0.1
+RD21_ONE_LAMBDA = "1.00e-04"
+# the sweep: two λ warm-seq at batch RD21_TRAIN_BATCH, RD21_TRAIN_STEPS
+# asked (one K_INNER call each), blocks of two training clouds
+RD21_TRAIN_LAMBDAS = (3e-4, 1e-4)
+RD21_TRAIN_STEPS, RD21_TRAIN_BATCH = 3, 8
+RD21_TRAIN_SEEDS, RD21_VAL_SEEDS = (0, 1), (100,)
+RD21_FLAGSHIP = "c3p-a0.75 (adaptive, flagship protocol)"
+RD21_C1 = "c1 (fixed thr)"
+
+
+def rd21_rows(label, got, want):
+    """Hold each of ``got``'s rows against the JAX row of the same (λ,
+    cloud, group) in ``want`` to ``RD21_BOUNDS``; print both. Returns the
+    largest deviations by group: (bpp relative, PSNR dB)."""
+    key = lambda r: (r["lmbda"], r["pc_name"], r.get("opt_group", "d1"))  # noqa: E731
+    want = {key(r): r for r in want}
+    worst = {}
+    for row in got:
+        k = key(row)
+        j = want[k]
+        rel_max, db_max, cols = RD21_BOUNDS[k[2]]
+        rel = (row["bpp"] - j["bpp"]) / j["bpp"]
+        cols_all = [c for c in ("d1_psnr", "d1_psnr_host", "d2_psnr",
+                                "d2_psnr_enc", "d1_psnr_on_d2_group")
+                    if c in row]
+        log(f"  {label} λ {k[0]:g} {k[1]} {k[2]}: {row['bpp']:.6f} bpp "
+            f"(JAX {j['bpp']:.6f}, {rel:+.3e}); " + ", ".join(
+                f"{c} {row[c]:.4f} (JAX {j[c]:.4f}, {row[c] - j[c]:+.4f})"
+                for c in cols_all))
+        assert abs(rel) <= rel_max, (label, k, row["bpp"], j["bpp"])
+        dev = [abs(row[c] - j[c]) for c in cols]
+        assert max(dev) <= db_max, (label, k, cols, dev)
+        w = worst.setdefault(k[2], [0.0, 0.0])
+        w[0], w[1] = max(w[0], abs(rel)), max(w[1], *dev)
+    return worst
+
+
+def rd21_same_anchor(label, got, want, names):
+    """The anchor rows of ``names``: equal to JAX's, value for value."""
+    want = [r for r in want if r["pc_name"] in names]
+    assert len(got) == len(want) and got == want, (label, got, want)
+    log(f"  {label} anchor: {len(got)} rows ({sorted(names)}) equal to "
+        f"JAX's, value for value")
+
+
+def check_rd_tools(device, card, expect_launches):
+    """Phase 21: the port's RD tools on the committed ladders. Returns the
+    launch counts of its two rd_eval runs on the device path, summed."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.ops import kernels
+    from pcc_geo_cnn_v2_tpu_torch.tools import (
+        assets_to_ckpt,
+        export_rd_assets,
+        rd_eval,
+        rd_ladder,
+        rd_train_all,
+    )
+    from pcc_geo_cnn_v2_tpu_torch.training import Trainer, read_checkpoint
+    from pcc_geo_cnn_v2_tpu_torch.weights import load_asset_tree, params_to_jax
+
+    t_phase = time.time()
+    walls, worst = {}, {}
+    names = {f"figure_{s}" for s in RD21_SEEDS}
+    jax_flag = json.loads(RD_RESULTS.read_text())
+    jax_c1 = json.loads(RD21_C1_RESULTS.read_text())
+    sweep_kernels = ("bucket_colsums", "bucket_colsums_d2", "halo_edt",
+                     "edt_sweep", "fused_tail", "fused_tail_slab")
+
+    def counted(label, argv, **kw):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.time()
+        rep = rd_eval.main(argv + ["--device", device], **kw)
+        torch.cuda.synchronize()
+        walls[label] = time.time() - t0
+        counts = dict(kernels.launches)
+        log(f"{label}: {walls[label]:.1f} s; launches {counts}")
+        return rep, counts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        seeds = [str(s) for s in RD21_SEEDS]
+        # 1. the d2 group on the committed c3p-a0.75 ladder
+        rep, counts_a = counted("rd_eval --d2_group", [
+            "--from-assets", "--d2_group", "--seeds", *seeds, "--out",
+            str(tmp / "rd_c3p_a075.json")])
+        expect_launches("rd_eval --d2_group", counts_a,
+                        ("bucket_colsums_d2", "halo_edt"),
+                        ("bucket_colsums", "edt_sweep", "fused_tail",
+                         "fused_tail_slab"))
+        jrows = [r for r in jax_flag["points"] if r["pc_name"] in names]
+        janchor = [r for r in jax_flag["anchor_points"]
+                   if r["pc_name"] in names]
+        assert len(rep["points"]) == len(jrows) == 20, len(rep["points"])
+        log(f"rd_eval --d2_group on {card}, against "
+            f"{RD_RESULTS.name} (JAX's rows, made on a TPU):")
+        worst["d2_group"] = rd21_rows("c3p-a0.75", rep["points"], jrows)
+        rd21_same_anchor("c3p-a0.75", rep["anchor_points"], janchor, names)
+        again = rd_eval.summarize(jrows, janchor, jax_flag["train_steps"])
+        bd = {}
+        for sec in ("bd_vs_builtin_octree_anchor",
+                    "bd_vs_builtin_octree_anchor_d2"):
+            got, want = rep[sec], again[sec]
+            bd[sec] = (got["bd_rate_pct"], got["bd_psnr_db"],
+                       want["bd_rate_pct"], want["bd_psnr_db"])
+            log(f"  {sec}: BD-rate {got['bd_rate_pct']:.3f}% (JAX's rows "
+                f"{want['bd_rate_pct']:.3f}%), BD-PSNR "
+                f"{got['bd_psnr_db']:.4f} dB (JAX's rows "
+                f"{want['bd_psnr_db']:.4f} dB)")
+            assert abs(got["bd_rate_pct"] - want["bd_rate_pct"]) <= \
+                RD21_BD_RATE_PTS, (sec, got, want)
+            assert abs(got["bd_psnr_db"] - want["bd_psnr_db"]) <= \
+                RD21_BD_PSNR_DB, (sec, got, want)
+        assert rep["train_steps"] == jax_flag["train_steps"]
+
+        # 1b. the d1 group (K1) on one λ, from an asset root holding it
+        one = tmp / "one" / RD_LADDER.name
+        one.mkdir(parents=True)
+        (one / f"{RD21_ONE_LAMBDA}.msgpack.gz").symlink_to(
+            RD_LADDER / f"{RD21_ONE_LAMBDA}.msgpack.gz")
+        shutil.copy(RD_LADDER / "manifest.json", one)
+        rep1, counts_d1 = counted("rd_eval (d1 group, one λ)", [
+            "--from-assets", "--seeds", str(RD21_SEEDS[0]), "--out",
+            str(tmp / "d1_one.json")], asset_root=one.parent)
+        expect_launches("rd_eval's d1 group", counts_d1,
+                        ("bucket_colsums", "halo_edt"),
+                        ("bucket_colsums_d2", "edt_sweep", "fused_tail",
+                         "fused_tail_slab"))
+        assert len(rep1["points"]) == 1, rep1["points"]
+        worst["d1_group"] = rd21_rows("c3p-a0.75", rep1["points"], jrows)
+
+        # 2. the c1 rung: V1 transforms, the host path, 3 λ
+        rep_c1, counts_c1 = counted("rd_eval --config c1 --fixed_threshold",
+                                    ["--config", "c1", "--from-assets",
+                                     "--fixed_threshold", "--seeds",
+                                     str(RD21_SEEDS[0]), "--out",
+                                     str(tmp / "rd_c1_fixedthr.json")])
+        expect_launches("the c1 rung (host path)", counts_c1, (),
+                        sweep_kernels)
+        c1_names = {f"figure_{RD21_SEEDS[0]}"}
+        jrows_c1 = [r for r in jax_c1["points"] if r["pc_name"] in c1_names]
+        janchor_c1 = [r for r in jax_c1["anchor_points"]
+                      if r["pc_name"] in c1_names]
+        assert len(rep_c1["points"]) == len(jrows_c1) == 3
+        log(f"rd_eval --config c1 --fixed_threshold on {card}, against "
+            f"{RD21_C1_RESULTS.name}:")
+        worst["c1_fixed"] = rd21_rows("c1", rep_c1["points"], jrows_c1)
+        rd21_same_anchor("c1", rep_c1["anchor_points"], janchor_c1, c1_names)
+
+        # 3. rd_ladder over the two reports, and over JAX's rows of the
+        # same clouds
+        t0 = time.time()
+        ladder = {r["run_id"]: r for r in rd_ladder.main(
+            ["--results_dir", str(tmp)])}
+        ref_dir = tmp / "jax_rows"
+        ref_dir.mkdir()
+        (ref_dir / RD_RESULTS.name).write_text(json.dumps(again))
+        (ref_dir / RD21_C1_RESULTS.name).write_text(json.dumps(
+            rd_eval.summarize(jrows_c1, janchor_c1, jax_c1["train_steps"])))
+        ladder_j = {r["run_id"]: r for r in rd_ladder.main(
+            ["--results_dir", str(ref_dir)])}
+        walls["rd_ladder"] = time.time() - t0
+        ladder_bd = {}
+        for rung in (RD21_C1, RD21_FLAGSHIP):
+            got = ladder[rung]["bd_psnr_vs_builtin_anchor"]
+            want = ladder_j[rung]["bd_psnr_vs_builtin_anchor"]
+            got_d2 = ladder[rung].get("bd_psnr_d2_vs_builtin_anchor")
+            want_d2 = ladder_j[rung].get("bd_psnr_d2_vs_builtin_anchor")
+            ladder_bd[rung] = (got, want, got_d2, want_d2)
+            log(f"  rd_ladder {rung}: BD-PSNR {got:.4f} dB (JAX's rows "
+                f"{want:.4f}); d2 {got_d2} (JAX's rows {want_d2})")
+            assert abs(got - want) <= RD21_BD_PSNR_DB, (rung, got, want)
+        assert {"config_ladder.json", "data.csv"} <= {
+            p.name for p in tmp.iterdir()}
+
+        # 4. the λ-sweep trainer cut in depth, its export, assets_to_ckpt
+        t0 = time.time()
+        train = rd_train_all.load_blocks(RD21_TRAIN_SEEDS, "phase21_train",
+                                         cache_dir=tmp)
+        val = rd_train_all.load_blocks(RD21_VAL_SEEDS, "phase21_val",
+                                       cache_dir=tmp)
+        walls["training blocks"] = time.time() - t0
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.time()
+        dirs = rd_train_all.train_sweep(
+            tmp / "models", "c3p", 0.75, RD21_TRAIN_LAMBDAS, train, val,
+            base_steps=RD21_TRAIN_STEPS, ft_steps=RD21_TRAIN_STEPS,
+            batch_size=RD21_TRAIN_BATCH, device=device)
+        torch.cuda.synchronize()
+        walls["train_sweep"] = time.time() - t0
+        counts_tr = dict(kernels.launches)
+        assert not any(counts_tr.values()), counts_tr
+        k = rd_train_all.K_INNER
+        for d in dirs:
+            assert (d / "done").exists(), d
+            assert Trainer.latest_checkpoint(d).name == f"ckpt_{k}", d
+        log(f"train_sweep: c3p at 64 filters, λ {RD21_TRAIN_LAMBDAS} "
+            f"warm-seq, {RD21_TRAIN_STEPS} steps asked = {k} taken each at "
+            f"batch {RD21_TRAIN_BATCH} on {len(train)} blocks of clouds "
+            f"{RD21_TRAIN_SEEDS} ({walls['training blocks']:.1f} s to make "
+            f"them), {walls['train_sweep']:.1f} s "
+            f"({2 * k / walls['train_sweep']:.2f} steps/s with the set-up); "
+            f"no kernel launched")
+        t0 = time.time()
+        export_rd_assets.export(tmp / "models", [dirs[0].parent.name],
+                                tmp / "export")
+        for d in dirs:
+            asset = tmp / "export" / d.parent.name / f"{d.name}.msgpack.gz"
+            got = load_asset_tree(asset)["params"]
+            want = params_to_jax(read_checkpoint(
+                Trainer.latest_checkpoint(d))["params"])["params"]
+            assert_trees_equal(got, want, f"export {d.name}")
+        manifest = json.loads((tmp / "export" / dirs[0].parent.name
+                               / "manifest.json").read_text())
+        assert [m["ckpt_step"] for m in manifest.values()] == [k, k]
+        (run,) = assets_to_ckpt.rehydrate(tmp / "rehydrated",
+                                          [RD_LADDER.name],
+                                          asset_root=one.parent)
+        state = read_checkpoint(Trainer.latest_checkpoint(run))
+        steps = json.loads((RD_LADDER / "manifest.json").read_text())
+        assert state["step"] == steps[RD21_ONE_LAMBDA]["ckpt_step"]
+        assert_trees_equal(params_to_jax(state["params"])["params"],
+                           load_asset_tree(RD_LADDER / f"{RD21_ONE_LAMBDA}"
+                                           ".msgpack.gz")["params"],
+                           "assets_to_ckpt")
+        walls["export and assets_to_ckpt"] = time.time() - t0
+        log(f"export_rd_assets: {len(dirs)} assets reload equal to the "
+            f"trained params, manifest steps {k}; assets_to_ckpt of "
+            f"{RD_LADDER.name}/{RD21_ONE_LAMBDA}: params equal to the "
+            f"asset's, step {state['step']}, a fresh Adam state "
+            f"({walls['export and assets_to_ckpt']:.1f} s)")
+    walls["phase"] = time.time() - t_phase
+    log("phase 21 worst deviations from JAX's rows (bpp relative, PSNR dB): "
+        + json.dumps(worst))
+    log("phase 21 BD (port, JAX's rows): " + json.dumps(bd)
+        + "; ladder BD-PSNR (port, JAX's rows, d2 port, d2 JAX's rows): "
+        + json.dumps(ladder_bd))
+    log("phase 21 walls: " + ", ".join(f"{k} {v:.1f} s"
+                                        for k, v in walls.items())
+        + f" [{card}]")
+    return {k: counts_a[k] + counts_d1[k] for k in counts_a}
+
+
+def assert_trees_equal(got, want, label):
+    """Two nested dicts of arrays: the same keys, equal arrays."""
+    assert sorted(got) == sorted(want), (label, sorted(got), sorted(want))
+    for key in want:
+        if isinstance(want[key], dict):
+            assert_trees_equal(got[key], want[key], f"{label}/{key}")
+        else:
+            assert np.array_equal(np.asarray(got[key]),
+                                  np.asarray(want[key])), f"{label}/{key}"
+
+
 def main():
     import os
 
@@ -2898,13 +3167,18 @@ def run(device):
     torch.cuda.empty_cache()
     counts_rd = check_rd_pipeline(device, card, expect_launches)
 
+    # phase 21: the RD evaluation tools on the committed ladders
+    torch.cuda.empty_cache()
+    counts_rt = check_rd_tools(device, card, expect_launches)
+
     by_path = {"d1": counts_d1, "A": counts_a, "B": counts_b, "C": counts_c,
                "C_bf16": counts_cb, "c2": counts_v1["c2"],
                "c1": counts_v1["c1"], "host_fixed": counts_hf,
                "host_cut": counts_hc, "point_d2_cut": counts_pd,
                "trained_c3p": counts_tr, **counts_bench,
                "round_robin": counts_rr, "dp_nccl1": counts_dp,
-               "sp_nccl1": counts_sp, "rd": counts_rd}
+               "sp_nccl1": counts_sp, "rd": counts_rd,
+               "rd_eval": counts_rt}
     for name, shapes in k4.items():
         # headline numbers: f32 at the stage with the most work
         top = max((r for r in shapes if r["dtype"] == "f32"),
