@@ -2391,9 +2391,17 @@ def check_rd_pipeline(device, card, expect_launches):
 # reports, then a cut train sweep, its export and assets_to_ckpt
 RD21_SEEDS = (200, 203)
 RD21_C1_RESULTS = REPO / "results/rd_c1_fixedthr.json"
-# bounds against JAX's committed rows: bpp relative, PSNR in dB, by group
+# bounds against JAX's committed rows: bpp relative, PSNR in dB, by group.
+# The committed d2-group rows were encoded before the JAX d2 sweep took the
+# first distance-tied row (git log of results/rd_c3p_a075.json: they came
+# in with that fix, from the evaluation that prompted it; the later schema
+# change kept their picks), a rule that picked thresholds where its
+# optimistic D2 peaked. The current rule, which K3 follows, scores no worse
+# by host D2: on the d2 group the host D2 PSNR (and the d2 BD against the
+# anchor) is held one-sided, no more than the bound below JAX's
 RD21_BOUNDS = {"d1": (0.005, 0.05, ("d1_psnr", "d1_psnr_host")),
                "d2": (0.01, 0.1, ("d2_psnr",))}
+RD21_ONE_SIDED = ("d2",)
 RD21_BD_RATE_PTS, RD21_BD_PSNR_DB = 1.0, 0.1
 RD21_ONE_LAMBDA = "1.00e-04"
 # the sweep: two λ warm-seq at batch RD21_TRAIN_BATCH, RD21_TRAIN_STEPS
@@ -2407,8 +2415,10 @@ RD21_C1 = "c1 (fixed thr)"
 
 def rd21_rows(label, got, want):
     """Hold each of ``got``'s rows against the JAX row of the same (λ,
-    cloud, group) in ``want`` to ``RD21_BOUNDS``; print both. Returns the
-    largest deviations by group: (bpp relative, PSNR dB)."""
+    cloud, group) in ``want`` to ``RD21_BOUNDS`` (one-sided for the groups
+    of ``RD21_ONE_SIDED``); print both. Returns the extreme deviations by
+    group: largest |bpp relative|, then the least and the largest PSNR
+    difference in dB."""
     key = lambda r: (r["lmbda"], r["pc_name"], r.get("opt_group", "d1"))  # noqa: E731
     want = {key(r): r for r in want}
     worst = {}
@@ -2425,10 +2435,14 @@ def rd21_rows(label, got, want):
                 f"{c} {row[c]:.4f} (JAX {j[c]:.4f}, {row[c] - j[c]:+.4f})"
                 for c in cols_all))
         assert abs(rel) <= rel_max, (label, k, row["bpp"], j["bpp"])
-        dev = [abs(row[c] - j[c]) for c in cols]
-        assert max(dev) <= db_max, (label, k, cols, dev)
-        w = worst.setdefault(k[2], [0.0, 0.0])
-        w[0], w[1] = max(w[0], abs(rel)), max(w[1], *dev)
+        # a fixed-threshold row has no d1_psnr_host: its d1_psnr is host's
+        dev = [row[c] - j[c] for c in cols if c in j]
+        if k[2] in RD21_ONE_SIDED:
+            assert min(dev) >= -db_max, (label, k, cols, dev)
+        else:
+            assert max(map(abs, dev)) <= db_max, (label, k, cols, dev)
+        w = worst.setdefault(k[2], [0.0, np.inf, -np.inf])
+        w[:] = max(w[0], abs(rel)), min(w[1], *dev), max(w[2], *dev)
     return worst
 
 
@@ -2508,10 +2522,14 @@ def check_rd_tools(device, card, expect_launches):
                 f"{want['bd_rate_pct']:.3f}%), BD-PSNR "
                 f"{got['bd_psnr_db']:.4f} dB (JAX's rows "
                 f"{want['bd_psnr_db']:.4f} dB)")
-            assert abs(got["bd_rate_pct"] - want["bd_rate_pct"]) <= \
-                RD21_BD_RATE_PTS, (sec, got, want)
-            assert abs(got["bd_psnr_db"] - want["bd_psnr_db"]) <= \
-                RD21_BD_PSNR_DB, (sec, got, want)
+            d_rate = got["bd_rate_pct"] - want["bd_rate_pct"]
+            d_psnr = got["bd_psnr_db"] - want["bd_psnr_db"]
+            if sec.endswith("_d2"):  # the d2 group's rows: one-sided
+                assert d_rate <= RD21_BD_RATE_PTS and \
+                    d_psnr >= -RD21_BD_PSNR_DB, (sec, got, want)
+            else:
+                assert abs(d_rate) <= RD21_BD_RATE_PTS and \
+                    abs(d_psnr) <= RD21_BD_PSNR_DB, (sec, got, want)
         assert rep["train_steps"] == jax_flag["train_steps"]
 
         # 1b. the d1 group (K1) on one λ, from an asset root holding it
@@ -2592,7 +2610,8 @@ def check_rd_tools(device, card, expect_launches):
         walls["train_sweep"] = time.time() - t0
         counts_tr = dict(kernels.launches)
         assert not any(counts_tr.values()), counts_tr
-        k = rd_train_all.K_INNER
+        # steps advance K_INNER at a time, as the JAX tool's scan calls
+        k = -(-RD21_TRAIN_STEPS // rd_train_all.K_INNER) * rd_train_all.K_INNER
         for d in dirs:
             assert (d / "done").exists(), d
             assert Trainer.latest_checkpoint(d).name == f"ckpt_{k}", d

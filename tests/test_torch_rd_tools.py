@@ -415,7 +415,7 @@ def test_train_sweep_early_stop_keeps_the_best_params(tmp_path, monkeypatch):
     assert _equal(_params(run), kept[2])
 
 
-# -- the drivers: rd_sweep, run_rd_report, ut_build_paper, run_demo_pipeline --
+# -- the scripts: rd_sweep, run_rd_report, ut_build_paper, run_demo_pipeline --
 
 
 def test_rd_sweep_reads_no_argv_at_import_and_its_cloud_equals_jax(
@@ -465,7 +465,7 @@ def _record_cli(monkeypatch, module, calls, name, effect=None):
 
 
 def test_run_rd_report_drives_the_clis_as_jax(tmp_path, monkeypatch):
-    """Both drivers on two trained λ directories, the CLIs they call
+    """Both scripts on two trained λ directories, the CLIs they call
     recorded: the same argv in the same order (the port's ev_experiment
     with ``--device``), the same anchor reports rehomed, the same cloud
     files."""
