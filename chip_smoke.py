@@ -2402,6 +2402,12 @@ RD21_C1_RESULTS = REPO / "results/rd_c1_fixedthr.json"
 RD21_BOUNDS = {"d1": (0.005, 0.05, ("d1_psnr", "d1_psnr_host")),
                "d2": (0.01, 0.1, ("d2_psnr",))}
 RD21_ONE_SIDED = ("d2",)
+# the fixed-threshold rows (the c1 rung): D1 PSNR within 0.1 dB. Their
+# picks are all the middle threshold, so the rows move with x_hat alone,
+# and c1's x_hat crowds it: at λ 1e-5 on figure_cloud(200), 29,151 voxels
+# lie within 1e-3 of it, and the port's own f32 and bf16 convolutions
+# give D1 PSNRs 0.044 dB apart (my chip run on an H100)
+RD21_FIXED_BOUNDS = {"d1": (0.005, 0.1, ("d1_psnr",))}
 RD21_BD_RATE_PTS, RD21_BD_PSNR_DB = 1.0, 0.1
 RD21_ONE_LAMBDA = "1.00e-04"
 # the sweep: two λ warm-seq at batch RD21_TRAIN_BATCH, RD21_TRAIN_STEPS
@@ -2413,9 +2419,9 @@ RD21_FLAGSHIP = "c3p-a0.75 (adaptive, flagship protocol)"
 RD21_C1 = "c1 (fixed thr)"
 
 
-def rd21_rows(label, got, want):
+def rd21_rows(label, got, want, bounds=RD21_BOUNDS):
     """Hold each of ``got``'s rows against the JAX row of the same (λ,
-    cloud, group) in ``want`` to ``RD21_BOUNDS`` (one-sided for the groups
+    cloud, group) in ``want`` to ``bounds`` (one-sided for the groups
     of ``RD21_ONE_SIDED``); print both. Returns the extreme deviations by
     group: largest |bpp relative|, then the least and the largest PSNR
     difference in dB."""
@@ -2425,7 +2431,7 @@ def rd21_rows(label, got, want):
     for row in got:
         k = key(row)
         j = want[k]
-        rel_max, db_max, cols = RD21_BOUNDS[k[2]]
+        rel_max, db_max, cols = bounds[k[2]]
         rel = (row["bpp"] - j["bpp"]) / j["bpp"]
         cols_all = [c for c in ("d1_psnr", "d1_psnr_host", "d2_psnr",
                                 "d2_psnr_enc", "d1_psnr_on_d2_group")
@@ -2435,8 +2441,7 @@ def rd21_rows(label, got, want):
                 f"{c} {row[c]:.4f} (JAX {j[c]:.4f}, {row[c] - j[c]:+.4f})"
                 for c in cols_all))
         assert abs(rel) <= rel_max, (label, k, row["bpp"], j["bpp"])
-        # a fixed-threshold row has no d1_psnr_host: its d1_psnr is host's
-        dev = [row[c] - j[c] for c in cols if c in j]
+        dev = [row[c] - j[c] for c in cols]
         if k[2] in RD21_ONE_SIDED:
             assert min(dev) >= -db_max, (label, k, cols, dev)
         else:
@@ -2563,7 +2568,8 @@ def check_rd_tools(device, card, expect_launches):
         assert len(rep_c1["points"]) == len(jrows_c1) == 3
         log(f"rd_eval --config c1 --fixed_threshold on {card}, against "
             f"{RD21_C1_RESULTS.name}:")
-        worst["c1_fixed"] = rd21_rows("c1", rep_c1["points"], jrows_c1)
+        worst["c1_fixed"] = rd21_rows("c1", rep_c1["points"], jrows_c1,
+                                      RD21_FIXED_BOUNDS)
         rd21_same_anchor("c1", rep_c1["anchor_points"], janchor_c1, c1_names)
 
         # 3. rd_ladder over the two reports, and over JAX's rows of the

@@ -21,13 +21,22 @@ import json
 import shutil
 from pathlib import Path
 
-from pcc_geo_cnn_v2_tpu_torch.tools.paths import (
-    ASSET_ROOT,
-    run_alpha,
-    run_config,
-)
+from pcc_geo_cnn_v2_tpu_torch.tools.paths import ASSET_ROOT
 
 __all__ = ["rehydrate", "main"]
+
+
+def run_config(run_id: str) -> str:
+    """Run directory name → model config name (c3p-a0.75 → c3p)."""
+    return run_id.split("-a")[0]
+
+
+def run_alpha(run_id: str) -> float:
+    """Run directory name → focal-loss α (c3p-a0.75-10k → 0.75; 0.75 for
+    a c3p run without one, else 0.9)."""
+    if "-a" in run_id:
+        return float(run_id.split("-a")[1].split("-")[0])
+    return 0.75 if run_id.startswith("c3p") else 0.9
 
 
 def rehydrate(model_root, runs=None, asset_root=ASSET_ROOT):

@@ -32,15 +32,3 @@ def writable(path):
                              f"{root.relative_to(REPO)}/ (committed)")
     return path
 
-
-def run_config(run_id: str) -> str:
-    """Run directory name → model config name (c3p-a0.75 → c3p)."""
-    return run_id.split("-a")[0]
-
-
-def run_alpha(run_id: str) -> float:
-    """Run directory name → focal-loss α (c3p-a0.75-10k → 0.75; 0.75 for
-    a c3p run without one, else 0.9)."""
-    if "-a" in run_id:
-        return float(run_id.split("-a")[1].split("-")[0])
-    return 0.75 if run_id.startswith("c3p") else 0.9

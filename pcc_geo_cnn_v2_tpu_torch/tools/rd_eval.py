@@ -52,8 +52,8 @@ from pcc_geo_cnn_v2_tpu_torch.tools.paths import (
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["EVAL_SEEDS", "ANCHOR_SCALES", "reference_curves", "default_out",
-           "avg_curve", "summarize", "main"]
+__all__ = ["EVAL_SEEDS", "ANCHOR_SCALES", "reference_curves", "avg_curve",
+           "summarize", "main"]
 
 EVAL_SEEDS = [200, 201, 202, 203]
 RESOLUTION = 1024
@@ -94,16 +94,6 @@ def reference_curves(path, metric="d1_psnr", labels=("c3", "c4"),
             [sorted(v)[:n] for v in per_pc.values()], axis=0)
         out[label] = pts  # [(bpp, psnr)...]
     return out
-
-
-def default_out(run_id, fixed_threshold):
-    """The JAX tool's result name for a run, under the port's root."""
-    if run_id == "c3p-a0.75" and not fixed_threshold:
-        name = "rd_c3p_a075.json"
-    else:
-        name = ("rd_" + run_id.replace("-", "_").replace(".", "")
-                + ("_fixedthr" if fixed_threshold else "") + ".json")
-    return str(RESULTS_ROOT / name)
 
 
 def _bd_safe(fn, ref, ours):
@@ -296,8 +286,12 @@ def main(argv=None, asset_root=ASSET_ROOT, reference_csv=None):
         args.run_id = "c3p-a0.75" if args.config == "c3p" else args.config
     if args.model_root is None:
         args.model_root = f"models/rd/{args.run_id}"
-    if args.out is None:
-        args.out = default_out(args.run_id, args.fixed_threshold)
+    if args.out is None:  # the JAX tool's names, under the port's root
+        args.out = str(RESULTS_ROOT / (
+            "rd_c3p_a075.json" if args.run_id == "c3p-a0.75"
+            and not args.fixed_threshold else
+            "rd_" + args.run_id.replace("-", "_").replace(".", "")
+            + ("_fixedthr" if args.fixed_threshold else "") + ".json"))
     out_path = writable(args.out)
     resolution, level = args.resolution, args.level
 
