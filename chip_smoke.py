@@ -196,10 +196,32 @@ exit):
    negative. The points are printed beside the JAX package's committed
    rows for the cloud (``results/rd_c3p_a075.json``), with each stage's
    wall seconds and the card.
+21. The RD evaluation tools (``pcc_geo_cnn_v2_tpu_torch/tools``), c3p at 64
+   filters: ``rd_eval --from-assets --d2_group`` on the committed
+   c3p-a0.75 ladder (five λ, 1024, level 4) on ``figure_cloud(200)`` and
+   ``(203)``, counted (K3 and K2; K1, K4a, K4b, K5 not); every row held
+   against the same (λ, cloud, group) row of JAX's
+   ``results/rd_c3p_a075.json`` (d1 group: bpp within 0.5%, D1 PSNR of
+   the encoder and of the host within 0.05 dB; d2 group: bpp within 1%,
+   host D2 PSNR no more than 0.1 dB below JAX's, see ``RD21_BOUNDS``), the
+   anchor rows equal, BD against the anchor within 1 point and 0.1 dB of
+   the BD of JAX's rows of the same clouds (the d2 one one-sided); the d1
+   group on λ 1e-4, cloud 200, from an asset root holding that λ alone
+   (K1 and K2); the c1 rung ``--config c1 --fixed_threshold`` on cloud 200
+   against ``results/rd_c1_fixedthr.json`` (bpp within 0.5%, D1 PSNR
+   within 0.1 dB, ``RD21_FIXED_BOUNDS``; no kernel); ``rd_ladder`` over
+   the two reports, its BD-PSNR of both rungs within 0.1 dB of the same
+   ladder over JAX's rows; then ``train_sweep`` cut in depth (two λ
+   warm-seq, one 50-step ``K_INNER`` call each at batch 8, blocks of two
+   clouds; no kernel), ``export_rd_assets`` of it (the assets reload equal
+   to the trained params) and ``assets_to_ckpt`` of one committed λ (the
+   checkpoint's params equal the asset's). Stage walls and the rows
+   beside JAX's are printed.
 
 The launch counts are set to 0 just before each path and read just after
 (for the bench, inside its process, around its timed window; for phase 20,
-around its in-process experiment). Phases 12-20 print their seconds.
+around its in-process experiment; for phase 21, around each rd_eval
+run). Phases 12-21 print their seconds.
 Prints a ``kernels`` JSON line (per kernel: launches on its path and on
 every path, max error against the plain version, its median time (K1,
 K2, K3, K4 and K5 per call in bursts of four calls, so that the wrapper's
