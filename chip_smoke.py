@@ -198,8 +198,8 @@ exit):
    wall seconds and the card.
 21. The RD evaluation tools (``pcc_geo_cnn_v2_tpu_torch/tools``), c3p at 64
    filters: ``rd_eval --from-assets --d2_group`` on the committed
-   c3p-a0.75 ladder (five λ, 1024, level 4) on ``figure_cloud(200)`` and
-   ``(203)``, counted (K3 and K2; K1, K4a, K4b, K5 not); every row held
+   c3p-a0.75 ladder (five λ, 1024, level 4) on ``figure_cloud(200)``,
+   counted (K3 and K2; K1, K4a, K4b, K5 not); every row held
    against the same (λ, cloud, group) row of JAX's
    ``results/rd_c3p_a075.json`` (d1 group: bpp within 0.5%, D1 PSNR of
    the encoder and of the host within 0.05 dB; d2 group: bpp within 1%,
@@ -2411,7 +2411,10 @@ def check_rd_pipeline(device, card, expect_launches):
 # committed ladders: rd_eval --d2_group over RD_LADDER on RD21_SEEDS, its d1
 # group on one λ, --fixed_threshold on the c1 rung, rd_ladder over the two
 # reports, then a cut train sweep, its export and assets_to_ckpt
-RD21_SEEDS = (200, 203)
+# rd_eval evaluates figure clouds 200-203; the phase takes 200 alone, so
+# that the whole script stays well inside its time (with 203 beside it the
+# script took 1,115.7 s of command time on an H100, phase 21 329.9 s)
+RD21_SEEDS = (200,)
 RD21_C1_RESULTS = REPO / "results/rd_c1_fixedthr.json"
 # bounds against JAX's committed rows: bpp relative, PSNR in dB, by group.
 # The committed d2-group rows were encoded before the JAX d2 sweep took the
@@ -2498,7 +2501,11 @@ def check_rd_tools(device, card, expect_launches):
         rd_train_all,
     )
     from pcc_geo_cnn_v2_tpu_torch.training import Trainer, read_checkpoint
-    from pcc_geo_cnn_v2_tpu_torch.weights import load_asset_tree, params_to_jax
+    from pcc_geo_cnn_v2_tpu_torch.weights import (
+        load_asset_tree,
+        msgpack_serialize,
+        params_to_jax,
+    )
 
     t_phase = time.time()
     walls, worst = {}, {}
@@ -2533,7 +2540,8 @@ def check_rd_tools(device, card, expect_launches):
         jrows = [r for r in jax_flag["points"] if r["pc_name"] in names]
         janchor = [r for r in jax_flag["anchor_points"]
                    if r["pc_name"] in names]
-        assert len(rep["points"]) == len(jrows) == 20, len(rep["points"])
+        assert len(rep["points"]) == len(jrows) == 10 * len(RD21_SEEDS), \
+            len(rep["points"])
         log(f"rd_eval --d2_group on {card}, against "
             f"{RD_RESULTS.name} (JAX's rows, made on a TPU):")
         worst["d2_group"] = rd21_rows("c3p-a0.75", rep["points"], jrows)
@@ -2653,12 +2661,11 @@ def check_rd_tools(device, card, expect_launches):
         t0 = time.time()
         export_rd_assets.export(tmp / "models", [dirs[0].parent.name],
                                 tmp / "export")
-        for d in dirs:
+        for d in dirs:  # equal trees serialise to equal bytes
             asset = tmp / "export" / d.parent.name / f"{d.name}.msgpack.gz"
-            got = load_asset_tree(asset)["params"]
-            want = params_to_jax(read_checkpoint(
-                Trainer.latest_checkpoint(d))["params"])["params"]
-            assert_trees_equal(got, want, f"export {d.name}")
+            assert msgpack_serialize(load_asset_tree(asset)) == \
+                msgpack_serialize(params_to_jax(read_checkpoint(
+                    Trainer.latest_checkpoint(d))["params"])), d
         manifest = json.loads((tmp / "export" / dirs[0].parent.name
                                / "manifest.json").read_text())
         assert [m["ckpt_step"] for m in manifest.values()] == [k, k]
@@ -2668,10 +2675,9 @@ def check_rd_tools(device, card, expect_launches):
         state = read_checkpoint(Trainer.latest_checkpoint(run))
         steps = json.loads((RD_LADDER / "manifest.json").read_text())
         assert state["step"] == steps[RD21_ONE_LAMBDA]["ckpt_step"]
-        assert_trees_equal(params_to_jax(state["params"])["params"],
-                           load_asset_tree(RD_LADDER / f"{RD21_ONE_LAMBDA}"
-                                           ".msgpack.gz")["params"],
-                           "assets_to_ckpt")
+        assert msgpack_serialize(params_to_jax(state["params"])) == \
+            msgpack_serialize(load_asset_tree(
+                RD_LADDER / f"{RD21_ONE_LAMBDA}.msgpack.gz")), run
         walls["export and assets_to_ckpt"] = time.time() - t0
         log(f"export_rd_assets: {len(dirs)} assets reload equal to the "
             f"trained params, manifest steps {k}; assets_to_ckpt of "
@@ -2688,17 +2694,6 @@ def check_rd_tools(device, card, expect_launches):
                                         for k, v in walls.items())
         + f" [{card}]")
     return {k: counts_a[k] + counts_d1[k] for k in counts_a}
-
-
-def assert_trees_equal(got, want, label):
-    """Two nested dicts of arrays: the same keys, equal arrays."""
-    assert sorted(got) == sorted(want), (label, sorted(got), sorted(want))
-    for key in want:
-        if isinstance(want[key], dict):
-            assert_trees_equal(got[key], want[key], f"{label}/{key}")
-        else:
-            assert np.array_equal(np.asarray(got[key]),
-                                  np.asarray(want[key])), f"{label}/{key}"
 
 
 def main():
