@@ -2450,7 +2450,9 @@ def rd21_rows(label, got, want, bounds=RD21_BOUNDS):
     of ``RD21_ONE_SIDED``); print both. Returns the extreme deviations by
     group: largest |bpp relative|, then the least and the largest PSNR
     difference in dB."""
-    key = lambda r: (r["lmbda"], r["pc_name"], r.get("opt_group", "d1"))  # noqa: E731
+    def key(r):
+        return r["lmbda"], r["pc_name"], r.get("opt_group", "d1")
+
     want = {key(r): r for r in want}
     worst = {}
     for row in got:

@@ -100,7 +100,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     files = sorted(Path(args.input_dir).glob(args.input_pattern))
-    assert files, "no meshes matched"
+    if not files:
+        parser.error("no meshes matched")
     work = []
     for f in files:
         rel = f.relative_to(args.input_dir).with_suffix(".ply")
@@ -109,7 +110,7 @@ def main(argv=None):
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         work.append((str(f), str(out), args.vg_size))
-    with multiprocessing.Pool(args.processes) as pool:
+    with multiprocessing.get_context("spawn").Pool(args.processes) as pool:
         pool.map(_work, work)
     logger.info("converted %d meshes", len(work))
 

@@ -44,13 +44,14 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     files = sorted(Path(args.input_dir).glob(args.input_pattern))
-    assert files, "no clouds matched"
+    if not files:
+        parser.error("no clouds matched")
     work = []
     for f in files:
         rel_dir = (Path(args.output_dir)
                    / f.relative_to(args.input_dir)).parent
         work.append((str(f), str(rel_dir), args.vg_size, args.level))
-    with multiprocessing.Pool(args.processes) as pool:
+    with multiprocessing.get_context("spawn").Pool(args.processes) as pool:
         pool.map(split_one, work)
 
 

@@ -32,7 +32,8 @@ def main(argv=None):
         key=lambda p: p.stat().st_size,
         reverse=True,
     )[: args.n]
-    assert files, "no files matched"
+    if not files:
+        parser.error("no files matched")
     out = Path(args.output_dir)
     out.mkdir(parents=True, exist_ok=True)
     for f in files:

@@ -47,7 +47,8 @@ def rehydrate(model_root, runs=None, asset_root=ASSET_ROOT):
     asset_dirs = sorted(p for p in Path(asset_root).iterdir() if p.is_dir())
     if runs:
         asset_dirs = [p for p in asset_dirs if p.name in runs]
-    assert asset_dirs, f"no matching assets under {asset_root}"
+    if not asset_dirs:
+        raise FileNotFoundError(f"no matching assets under {asset_root}")
 
     written = []
     for adir in asset_dirs:

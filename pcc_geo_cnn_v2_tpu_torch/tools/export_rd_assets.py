@@ -57,7 +57,8 @@ def export(model_root, runs=None, out_root=EXPORT_ROOT):
     run_dirs = sorted(p for p in root.iterdir() if p.is_dir())
     if runs:
         run_dirs = [p for p in run_dirs if p.name in runs]
-    assert run_dirs, f"nothing to export under {root}"
+    if not run_dirs:
+        raise FileNotFoundError(f"nothing to export under {root}")
 
     written = []
     for run_dir in run_dirs:

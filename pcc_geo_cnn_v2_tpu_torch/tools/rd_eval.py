@@ -252,14 +252,17 @@ def _ladder(args, asset_root):
         root = Path(asset_root) / Path(args.model_root).name
         files = sorted(root.glob("*e-*.msgpack.gz"),
                        key=lambda p: float(p.name[:-len(".msgpack.gz")]))
-        assert files, f"no exported λ assets under {root}"
+        if not files:
+            raise FileNotFoundError(f"no exported λ assets under {root}")
         manifest = json.loads((root / "manifest.json").read_text())
         steps = {tag: m["ckpt_step"] for tag, m in manifest.items()}
         return [(float(p.name[:-len(".msgpack.gz")]),
                  lambda p=p: load_asset_tree(p)) for p in files], steps
     run_dirs = sorted(Path(args.model_root).glob("*e-*"),
                       key=lambda p: float(p.name))
-    assert run_dirs, f"no λ checkpoints under {args.model_root}"
+    if not run_dirs:
+        raise FileNotFoundError(
+            f"no λ checkpoints under {args.model_root}")
     steps = {}
     for d in run_dirs:
         latest = Trainer.latest_checkpoint(d)
@@ -279,9 +282,10 @@ def main(argv=None, asset_root=ASSET_ROOT, reference_csv=None):
         None or absent, ``bd_vs_reference`` stays empty.
     """
     logging.basicConfig(level=logging.INFO)
-    args = _parser().parse_args(argv)
-    assert not (args.d2_group and args.fixed_threshold), \
-        "--d2_group needs the adaptive sweep path"
+    parser = _parser()
+    args = parser.parse_args(argv)
+    if args.d2_group and args.fixed_threshold:
+        parser.error("--d2_group needs the adaptive sweep path")
     if args.run_id is None:
         args.run_id = "c3p-a0.75" if args.config == "c3p" else args.config
     if args.model_root is None:

@@ -110,7 +110,8 @@ def train_sweep(out_dir, config, alpha, lambdas, train_blocks, val_blocks,
     from pcc_geo_cnn_v2_tpu_torch.weights import params_from_jax
 
     if run_id is None:
-        assert isinstance(config, str), "a config dict needs a run_id"
+        if not isinstance(config, str):
+            raise ValueError("a config dict needs a run_id")
         run_id = (config if alpha == 0.9 else f"{config}-a{alpha:g}")
     prev_params = None
     run_dirs = []

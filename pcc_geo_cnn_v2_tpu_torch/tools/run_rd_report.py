@@ -70,7 +70,8 @@ def main(argv=None):
 
     run_dirs = sorted(Path(args.model_root).glob("*e-*"),
                       key=lambda p: float(p.name))
-    assert run_dirs, f"no checkpoints under {args.model_root}"
+    if not run_dirs:
+        ap.error(f"no checkpoints under {args.model_root}")
     exp_root = out / "experiments" / pc_name
     for run_dir in run_dirs:
         exp_dir = exp_root / "c3p-a0.75" / run_dir.name

@@ -105,7 +105,7 @@ def test_rd_ladder_refuses_the_committed_results():
         rd_ladder.main(["--results_dir", str(RESULTS)])
 
 
-# -- reference_curves ----------------------------------------------------------
+# -- reference_curves ---------------------------------------------------------
 
 
 def test_reference_curves_equal_jax(tmp_path, monkeypatch):
@@ -163,7 +163,7 @@ def test_anchor_only_equals_jax(tmp_path, monkeypatch, name):
         "figure_200", "figure_203"}
 
 
-# -- export_rd_assets and assets_to_ckpt ---------------------------------------
+# -- export_rd_assets and assets_to_ckpt --------------------------------------
 
 
 def _asset_root(tmp_path, run="c1", tags=("5.00e-05", "2.00e-04")):
@@ -272,7 +272,7 @@ def test_export_refuses_the_committed_assets(tmp_path):
         export_rd_assets.export(tmp_path / "m", ["c1"], ASSETS.parent)
 
 
-# -- train_sweep ------------------------------------------------------------------
+# -- train_sweep --------------------------------------------------------------
 
 
 def _blocks(n, seed, size=16, pts=200):
