@@ -2431,7 +2431,8 @@ RD21_ONE_SIDED = ("d2",)
 # picks are all the middle threshold, so the rows move with x_hat alone,
 # and c1's x_hat crowds it: at λ 1e-5 on figure_cloud(200), 29,151 voxels
 # lie within 1e-3 of it, and the port's own f32 and bf16 convolutions
-# give D1 PSNRs 0.044 dB apart (my chip run on an H100)
+# give D1 PSNRs 0.044 dB apart on an H100
+# (tools/torch_probe_fixed_threshold.py)
 RD21_FIXED_BOUNDS = {"d1": (0.005, 0.1, ("d1_psnr",))}
 RD21_BD_RATE_PTS, RD21_BD_PSNR_DB = 1.0, 0.1
 RD21_ONE_LAMBDA = "1.00e-04"
