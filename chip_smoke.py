@@ -217,11 +217,20 @@ exit):
    to the trained params) and ``assets_to_ckpt`` of one committed λ (the
    checkpoint's params equal the asset's). Stage walls and the rows
    beside JAX's are printed.
+22. The CLIs' ``--debug`` harness, counted, on the cloud of phase 6
+   written as a PLY without normals: ``cli.compress.main([..., "--debug"])``
+   (c3p, the committed weights, ``batch_blocks`` 32; K1 and K2 launched as
+   on phase 6, the other kernels not), then ``cli.decompress.main([...,
+   "--debug"])``, whose check of the decoded ``y_sym`` / ``z_sym`` against
+   the encoder's dump passes. The stream's payload bytes equal phase 6's,
+   the decoded PLY equals phase 6's decoded cloud, and the dump's x_hat
+   (the fused ``encode``) equals the canonical x_hat of every chunk bit for
+   bit.
 
 The launch counts are set to 0 just before each path and read just after
 (for the bench, inside its process, around its timed window; for phase 20,
 around its in-process experiment; for phase 21, around each rd_eval
-run). Phases 12-21 print their seconds.
+run). Phases 12-22 print their seconds.
 Prints a ``kernels`` JSON line (per kernel: launches on its path and on
 every path, max error against the plain version, its median time (K1,
 K2, K3, K4 and K5 per call in bursts of four calls, so that the wrapper's
@@ -2699,6 +2708,82 @@ def check_rd_tools(device, card, expect_launches):
     return {k: counts_a[k] + counts_d1[k] for k in counts_a}
 
 
+# phase 22: the encoder / decoder --debug harness through the CLIs
+
+
+def check_debug_cli(device, card, codec, points, chunk_points, blob_d1,
+                    decoded_d1, counts_d1, expect_launches):
+    """``compress --debug`` → ``decompress --debug`` of ``points`` (the
+    phase 6 cloud without normals), counted; the stream, the decoded cloud
+    and the launches against phase 6's, and the dump's x_hat against the
+    canonical x_hat of ``codec`` on every chunk (``chunk_points(lo, hi)``
+    gives a chunk's point lists). Returns the launch counts."""
+    import tempfile
+
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.cli import compress, decompress
+    from pcc_geo_cnn_v2_tpu_torch.ops import kernels
+    from pcc_geo_cnn_v2_tpu_torch.utils import pc_io
+
+    t_phase = time.time()
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ply, stream = Path(tmp) / "in.ply", Path(tmp) / "c.bin"
+        dec_ply = Path(tmp) / "dec.ply"
+        pc_io.write_ply(ply, points)
+        args = ["--checkpoint_dir", str(ASSET), "--model_config", "c3p",
+                "--batch_blocks", str(BATCH), "--device", device]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.time()
+        compress.main(["--input_files", str(ply), "--output_files",
+                       str(stream), "--resolution", str(RESOLUTION),
+                       "--octree_level", str(LEVEL), "--debug"] + args)
+        torch.cuda.synchronize()
+        walls["compress --debug"] = time.time() - t0
+        t0 = time.time()
+        # raises AssertionError naming the key if a decoded symbol differs
+        decompress.main(["--input_files", str(stream), "--output_files",
+                         str(dec_ply), "--debug"] + args)
+        torch.cuda.synchronize()
+        walls["decompress --debug"] = time.time() - t0
+        counts = dict(kernels.launches)
+        assert gzip.decompress(stream.read_bytes()) == gzip.decompress(
+            blob_d1), "the --debug stream's payload differs from phase 6's"
+        decoded = pc_io.load_points([dec_ply])[0]
+        assert decoded.shape == decoded_d1.shape and np.array_equal(
+            decoded, decoded_d1), "the decoded PLY differs from phase 6's"
+        t0 = time.time()
+        dump = np.load(str(stream) + ".enc.debug.npz")
+        x_hat = dump["x_hat"]
+        keys = sorted(dump.files)
+        walls["load dump"] = time.time() - t0
+    expect_launches("the --debug CLIs", counts,
+                    ("bucket_colsums", "halo_edt"),
+                    ("bucket_colsums_d2", "edt_sweep", "fused_tail",
+                     "fused_tail_slab"))
+    assert counts == counts_d1, (counts, counts_d1)
+    assert keys == ["x_hat", "y_idx", "y_sym", "z_sym"], keys
+    n = len(x_hat)
+    assert x_hat.shape == (n, BLOCK, BLOCK, BLOCK, 1), x_hat.shape
+    t0 = time.time()
+    for lo, hi in codec._chunks(n):
+        canon = codec.canonical_chunk(chunk_points(lo, hi), hi - lo)
+        canon = canon["x_hat"][:hi - lo].cpu().numpy()
+        assert np.array_equal(canon.view(np.int32),
+                              x_hat[lo:hi].view(np.int32)), \
+            f"the dump's x_hat differs from the canonical one in [{lo}, {hi})"
+    walls["canonical x_hat"] = time.time() - t0
+    log(f"--debug CLIs: {n} blocks, decoded symbols equal the dump's, stream "
+        f"payload and {len(decoded)} decoded points equal phase 6's, the "
+        f"dump's x_hat ({x_hat.nbytes / 2 ** 20:.0f} MiB) equals the "
+        f"canonical x_hat bit for bit; launches {counts}; walls "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    log(f"phase 22: {time.time() - t_phase:.1f} s [{card}]")
+    return counts
+
+
 def main():
     import os
 
@@ -3216,6 +3301,13 @@ def run(device):
     torch.cuda.empty_cache()
     counts_rt = check_rd_tools(device, card, expect_launches)
 
+    # phase 22: the --debug harness through the CLIs, against phase 6
+    torch.cuda.empty_cache()
+    counts_dbg = check_debug_cli(
+        device, card, codec, points,
+        lambda lo, hi: codec.chunk_points(flat_dev, offsets, lo, hi, budget),
+        blob_d1, decoded_d1, counts_d1, expect_launches)
+
     by_path = {"d1": counts_d1, "A": counts_a, "B": counts_b, "C": counts_c,
                "C_bf16": counts_cb, "c2": counts_v1["c2"],
                "c1": counts_v1["c1"], "host_fixed": counts_hf,
@@ -3223,7 +3315,7 @@ def run(device):
                "trained_c3p": counts_tr, **counts_bench,
                "round_robin": counts_rr, "dp_nccl1": counts_dp,
                "sp_nccl1": counts_sp, "rd": counts_rd,
-               "rd_eval": counts_rt}
+               "rd_eval": counts_rt, "debug_cli": counts_dbg}
     for name, shapes in k4.items():
         # headline numbers: f32 at the stage with the most work
         top = max((r for r in shapes if r["dtype"] == "f32"),

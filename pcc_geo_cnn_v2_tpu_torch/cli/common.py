@@ -9,12 +9,18 @@ from pcc_geo_cnn_v2_tpu_torch.training import load_params as _load_params
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["add_model_args", "build_model_from_args", "load_params"]
+__all__ = ["add_model_args", "build_model_from_args", "load_params",
+           "config_names"]
+
+
+def config_names():
+    """The names ``--model_config`` accepts."""
+    return list(MODEL_CONFIGS)
 
 
 def add_model_args(parser, num_filters_default=None):
     parser.add_argument("--model_config", required=True,
-                        help=f"Model config: {list(MODEL_CONFIGS)}")
+                        help=f"Model config: {config_names()}")
     parser.add_argument("--num_filters", type=int, default=num_filters_default,
                         help="Override the config's filter count.")
     parser.add_argument(

@@ -1,13 +1,13 @@
 """Encode point clouds: octree partition + batched block compression.
 
-Same argv as ``pcc_geo_cnn_v2_tpu.cli.compress`` (but ``--debug``, the
-encoder's symbol dump) plus ``--device``: gzipped bitstreams per (input ×
-opt-metric group), ``.enc.metric.json`` sidecars, optional merged decode
-via ``--dec_files``. The threshold sweep runs on the device (d1 metrics,
-and with ``--input_normals`` d2 metrics too) unless ``--threshold_mode
-host``, ``--fixed_threshold`` or an opt metric outside the device sweep's
-set sends the cloud to the host path (``BlockCodec.compress_blocks``:
-KD-tree metrics per block), the JAX CLI's rule.
+Same argv as ``pcc_geo_cnn_v2_tpu.cli.compress`` plus ``--device``:
+gzipped bitstreams per (input × opt-metric group), ``.enc.metric.json``
+sidecars, optional merged decode via ``--dec_files``. The threshold sweep
+runs on the device (d1 metrics, and with ``--input_normals`` d2 metrics
+too) unless ``--threshold_mode host``, ``--fixed_threshold`` or an opt
+metric outside the device sweep's set sends the cloud to the host path
+(``BlockCodec.compress_blocks``: KD-tree metrics per block), the JAX CLI's
+rule.
 
     python -m pcc_geo_cnn_v2_tpu_torch.cli.compress --input_files in.ply \
         --output_files out.bin --checkpoint_dir \
@@ -23,6 +23,12 @@ opt metric, one output per metric:
 The middle threshold for every block, with no sweep:
 
     ... --fixed_threshold
+
+``--debug`` also writes ``<first output>.enc.debug.npz``, every array of
+``BlockCodec.encode_blocks`` (the fused encode's symbols and x_hat), for
+``decompress --debug`` to check the decoder's symbols against. With
+several opt-metric groups there is one dump, under the first output, as
+in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -92,6 +98,9 @@ def main(argv=None):
                         choices=["auto", "device", "host"],
                         help="auto: the device sweep where it covers the "
                              "opt metrics, else the host path.")
+    parser.add_argument("--debug", action="store_true",
+                        help="Dump encoder-side symbols for the decoder's "
+                             "bit-exactness check.")
     args = parser.parse_args(argv)
 
     with_normals = args.input_normals is not None
@@ -150,6 +159,9 @@ def main(argv=None):
             if args.dec_files:
                 pc_io.write_ply(args.dec_files[i * files_mult + j],
                                 meta["blocks_full"][:, :3])
+        if args.debug:
+            np.savez_compressed(outs[0] + ".enc.debug.npz",
+                                **codec.encode_blocks(blocks))
         logger.info("%s done -> %s", infile, ", ".join(outs))
 
 

@@ -5,6 +5,10 @@ Same argv as ``pcc_geo_cnn_v2_tpu.cli.decompress`` plus ``--device``:
     python -m pcc_geo_cnn_v2_tpu_torch.cli.decompress --input_files out.bin \
         --output_files dec.ply --checkpoint_dir \
         pcc_geo_cnn_v2_tpu/assets/bench_c3p.msgpack.gz --model_config c3p
+
+``--debug`` checks the decoded ``y_sym`` / ``z_sym`` against the dump
+``compress --debug`` wrote beside the stream (``<input>.enc.debug.npz``)
+and raises an ``AssertionError`` naming the key that differs.
 """
 
 from __future__ import annotations
@@ -29,6 +33,19 @@ from pcc_geo_cnn_v2_tpu_torch.utils.octree import departition_octree
 logger = logging.getLogger(__name__)
 
 
+def _check_debug_dump(dbg, dump_path):
+    """The decoder's symbols equal the encoder's dump, key by key where
+    both sides have the key, as int32."""
+    dump = np.load(dump_path)
+    for key in ("y_sym", "z_sym"):
+        if key in dump and key in dbg:
+            np.testing.assert_array_equal(
+                np.asarray(dbg[key]).astype(np.int32),
+                dump[key].astype(np.int32),
+                err_msg=f"{key} mismatch vs {dump_path}")
+    logger.info("debug: decoded symbols bit-exact vs encoder dump")
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     parser = argparse.ArgumentParser(
@@ -41,6 +58,9 @@ def main(argv=None):
                              "directory (its latest ckpt_<step>).")
     add_model_args(parser)
     parser.add_argument("--batch_blocks", type=int, default=32)
+    parser.add_argument("--debug", action="store_true",
+                        help="Verify decoded symbols against the encoder's "
+                             "--debug dump (bit-exactness harness).")
     args = parser.parse_args(argv)
     assert len(args.input_files) == len(args.output_files)
 
@@ -55,9 +75,14 @@ def main(argv=None):
             codec = BlockCodec(model, params, block_size=block_size,
                                batch_blocks=args.batch_blocks,
                                device=args.device)
-        dec_blocks = departition_octree(
-            codec.decompress_blocks(payload), binstr, [0, 0, 0],
-            [resolution] * 3, level)
+        if args.debug:
+            dec_blocks, dbg = codec.decompress_blocks(payload,
+                                                      return_debug=True)
+            _check_debug_dump(dbg, infile + ".enc.debug.npz")
+        else:
+            dec_blocks = codec.decompress_blocks(payload)
+        dec_blocks = departition_octree(dec_blocks, binstr, [0, 0, 0],
+                                        [resolution] * 3, level)
         cloud = (np.vstack(dec_blocks)[:, :3]
                  if dec_blocks else np.zeros((0, 3), np.float32))
         os.makedirs(os.path.dirname(outfile) or ".", exist_ok=True)

@@ -6,7 +6,11 @@ with input normals the d2 group), the host-threshold encoder
 (:meth:`BlockCodec.compress_blocks`: KD-tree metrics per block on a thread
 pool, or ``fixed_threshold``) and the decoder
 (:meth:`BlockCodec.decompress_blocks`), for v2 (hyperprior: c2, c3, c3p)
-and v1 (factorized prior: c1) models.
+and v1 (factorized prior: c1) models. The ``--debug`` harness of the CLIs
+adds :meth:`BlockCodec.encode_blocks` (the models' fused ``encode``),
+:meth:`BlockCodec.entropy_encode` (one block's strings) and
+``decompress_blocks(return_debug=True)`` (the decoder's symbols and
+packed masks).
 
 Encode, per chunk of ``batch_blocks`` blocks: voxelize → analysis pass
 (symbols only) → the decoder-canonical ``decode_z`` / ``decode_y`` (v1:
@@ -113,6 +117,7 @@ from pcc_geo_cnn_v2_tpu_torch.ops.voxel import (
     flatten_blocks,
     pack_attrs,
     pack_coords,
+    pack_points,
     packbits,
     unflatten_points,
     unpack_coords,
@@ -366,6 +371,19 @@ class BlockCodec:
                             self.eb_table)
         return list(zip(y, z))
 
+    def entropy_encode(self, out, i):
+        """Range-code block ``i`` of ``out`` (:meth:`encode_blocks`' dict)
+        → its tuple of strings, equal to entry ``i`` of
+        :meth:`entropy_encode_all`."""
+        if not self.is_v2:
+            return (rc.encode(out["y_sym"][i],
+                              self._channel_indexes(self.y_shape),
+                              self.eb_table),)
+        return (rc.encode(out["y_sym"][i], out["y_idx"][i], self.gc_table),
+                rc.encode(out["z_sym"][i],
+                          self._channel_indexes(self.z_shape),
+                          self.eb_table))
+
     @property
     def _sym_keys(self):
         """Per-block host outputs of the canonical passes."""
@@ -501,6 +519,29 @@ class BlockCodec:
                         for m in range(thr.shape[1])]
         res["occ"] = packbits((x[..., 0] > 0).reshape(len(x), -1))
         return res
+
+    def encode_blocks(self, blocks):
+        """The models' fused ``encode`` of every block, chunked at
+        ``batch_blocks`` (the last chunk's points zero-padded, as JAX pads
+        them) under :func:`deterministic_convs`, chunk k on lane k mod
+        lanes: host arrays of the n real rows — ``y_sym``, ``x_hat`` and,
+        v2, ``z_sym``, ``y_idx`` (int32). Its x_hat is the canonical one
+        bit for bit: the same decode functions at the same batch width,
+        and no row's convolutions read another row."""
+        n = len(blocks)
+        budget = max(int(2 ** np.ceil(np.log2(max(len(b) for b in blocks)))),
+                     64)
+        points, _ = pack_points(blocks, max_points=budget)
+        sent = []
+        for k, (lo, hi) in enumerate(self._chunks(n)):
+            lane = self._lanes[k % len(self._lanes)]
+            x = voxelize(self._pad_rows(points[lo:hi], self.batch_blocks,
+                                        lane), self.block_size)
+            deterministic_convs()
+            sent.append((hi - lo, lane.model.encode(x)))
+        return {key: np.concatenate([res[key][:m].cpu().numpy()
+                                     for m, res in sent])
+                for key in sent[0][1]}
 
     def compress_blocks_device_opt(self, blocks, binstr, points, resolution,
                                    level, opt_metrics=("d1_mse",),
@@ -761,11 +802,13 @@ class BlockCodec:
                 for k, (lo, hi) in enumerate(self._chunks(n))]
         return [o.cpu().numpy() for o in outs]
 
-    def decompress_blocks(self, payload):
+    def decompress_blocks(self, payload, return_debug=False):
         """payload: [(strings, threshold_idx), ...] → decoded point blocks.
 
         Thresholding and bit-packing run on the device; only 1-bit masks
-        come back to the host.
+        come back to the host. ``return_debug`` also returns the decoder's
+        half of the ``--debug`` harness: dict(y_sym, packed_masks [n,
+        B³/8] and, v2, z_sym, y_idx).
         """
         n = len(payload)
         bs = self.batch_blocks
@@ -792,9 +835,15 @@ class BlockCodec:
             self._decode_y(self._pad_rows(y_syms[lo:hi], bs, lane), lane),
             self._pad_rows(thr[lo:hi], bs, lane))[:hi - lo])
         marks.append(time.time())
-        blocks = unpack_mask_coords(np.concatenate(masks), self.block_size)
+        masks = np.concatenate(masks)
+        blocks = unpack_mask_coords(masks, self.block_size)
         marks.append(time.time())
         logger.info("decompress_blocks(%d blocks): z rANS %.3fs, decode_z "
                     "%.3fs, y rANS %.3fs, decode_y+masks %.3fs, unpack "
                     "%.3fs", n, *np.diff(marks))
-        return blocks
+        if not return_debug:
+            return blocks
+        debug = {"y_sym": y_syms, "packed_masks": masks}
+        if self.is_v2:
+            debug.update(z_sym=z_syms, y_idx=y_idx)
+        return blocks, debug

@@ -5,7 +5,9 @@ Port of ``CompressionModelV1`` (factorized prior on y,
 ``CompressionModelV2`` (scale hyperprior, ``:83-186``): ``forward`` is the
 JAX ``__call__`` (the training graph, noise quantization, likelihoods for
 the RD loss), ``aux_loss`` the factorized prior's; ``encode_syms`` /
-``decode`` / ``decode_z`` / ``decode_y`` the inference side. Public
+``decode`` / ``decode_z`` / ``decode_y`` the inference side, and
+``encode`` the JAX fused encode (symbols plus the decoder's x_hat, made
+from those same entry points, for ``BlockCodec.encode_blocks``). Public
 tensors keep the JAX package's NDHWC layouts — x ``[N, B, B, B, 1]``,
 latents and symbols ``[N, b, b, b, C]``, x_hat ``[N, B, B, B, 1]`` f32 —
 and are converted to NCDHW once per call. Quantization is f32.
@@ -75,6 +77,14 @@ class CompressionModelV1(nn.Module):
         """x [N,B,B,B,1] → dict(y_sym) int32, NDHWC."""
         y = _to_ndhwc(self.analysis_t(_to_ncdhw(x))).float()
         return {"y_sym": self.entropy_bottleneck.quantize_symbols(y)}
+
+    @torch.no_grad()
+    def encode(self, x):
+        """x [N,B,B,B,1] → dict(y_sym int32, x_hat): the symbols and the
+        decoder's reconstruction of them (JAX ``encode``)."""
+        out = self.encode_syms(x)
+        out["x_hat"] = self.decode(out["y_sym"])
+        return out
 
     @torch.no_grad()
     def decode(self, y_sym):
@@ -158,6 +168,16 @@ class CompressionModelV2(nn.Module):
             "y_sym": self.conditional.quantize_symbols(
                 _to_ndhwc(y).float()),
         }
+
+    @torch.no_grad()
+    def encode(self, x):
+        """x [N,B,B,B,1] → dict(z_sym, y_sym, y_idx int32, x_hat): the
+        symbols with the decoder's recomputation of the y CDF-row indexes
+        (``decode_z``) and of x_hat (``decode_y``), as JAX ``encode``."""
+        out = self.encode_syms(x)
+        out["y_idx"] = self.decode_z(out["z_sym"])[1]
+        out["x_hat"] = self.decode_y(out["y_sym"])
+        return out
 
     @torch.no_grad()
     def decode_z(self, z_sym):

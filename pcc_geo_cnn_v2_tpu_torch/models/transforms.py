@@ -39,10 +39,11 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["Conv", "ConvTranspose", "subpixel_conv_transpose",
-           "AnalysisTransformV1",
-           "SynthesisTransformV1", "AnalysisBlock", "SynthesisBlock",
-           "BlockStack", "HyperAnalysisTransform", "HyperSynthesisTransform",
-           "TRANSFORMS"]
+           "AnalysisTransformV1", "SynthesisTransformV1", "AnalysisBlock",
+           "SynthesisBlock", "BlockStack", "AnalysisTransformV2",
+           "SynthesisTransformV2", "AnalysisTransformProgressiveV2",
+           "SynthesisTransformProgressiveV2", "HyperAnalysisTransform",
+           "HyperSynthesisTransform", "TRANSFORMS"]
 
 RESIDUAL_MODES = ("add", "concat")
 

@@ -4,7 +4,10 @@ Port of ``pcc_geo_cnn_v2_tpu/ops/voxel.py``. Blocks travel to the card as
 one flat stream of packed coordinates (host :func:`flatten_blocks` +
 :func:`pack_coords`) and are rebuilt into a padded ``[N, budget, 3]``
 batch there (:func:`unpack_coords`, :func:`unflatten_points`);
-:func:`voxelize` scatters them into ``[N, B, B, B, 1]`` f32 grids.
+:func:`voxelize` scatters them into ``[N, B, B, B, 1]`` f32 grids. The
+per-block host helpers :func:`pack_points` (a padded ``[N, P, 3]`` batch,
+as the fused ``encode`` of ``BlockCodec.encode_blocks`` takes it) and
+:func:`devoxelize_host` are the JAX package's.
 """
 
 from __future__ import annotations
@@ -13,8 +16,8 @@ import numpy as np
 import torch
 
 __all__ = ["flatten_blocks", "pack_attrs", "pack_coords", "unpack_coords",
-           "unflatten_points", "voxelize", "voxelize_attrs", "packbits",
-           "unpackbits"]
+           "unflatten_points", "pack_points", "voxelize", "voxelize_attrs",
+           "devoxelize_host", "packbits", "unpackbits"]
 
 
 def flatten_blocks(blocks, cols=(0, 1, 2), dtype=np.int16):
@@ -77,6 +80,23 @@ def unflatten_points(flat, offs, n_blocks, budget, fill=-1):
     return out
 
 
+def pack_points(blocks, max_points=None, dtype=np.int32):
+    """Pad a list of variable-length [n_i, 3+] blocks to a dense batch on
+    the host; padding rows get coordinate -1, which :func:`voxelize` drops.
+
+    :return: (points [N, P, 3], counts [N] int32)
+    """
+    counts = np.array([len(b) for b in blocks], dtype=np.int32)
+    p = int(max_points) if max_points is not None else int(
+        counts.max(initial=1))
+    if counts.max(initial=0) > p:
+        raise ValueError(f"block with {counts.max()} points > budget {p}")
+    points = np.full((len(blocks), p, 3), -1, dtype=dtype)
+    for i, b in enumerate(blocks):
+        points[i, :len(b)] = np.asarray(b)[:, :3].astype(dtype)
+    return points, counts
+
+
 def voxelize(points, size):
     """Scatter integer points into dense binary occupancy grids.
 
@@ -116,6 +136,13 @@ def voxelize_attrs(points, attrs, size):
     grid.index_put_((flat[valid],), attrs[valid].to(torch.float32),
                     accumulate=True)
     return grid.view(n, size, size, size, a)
+
+
+def devoxelize_host(grid, threshold):
+    """Occupancy probabilities of one block → [M, 3] float32 coordinates
+    where ``grid > threshold``, in ``np.argwhere`` order (the reference's
+    ``model_types.py:209``)."""
+    return np.argwhere(np.asarray(grid) > threshold).astype(np.float32)
 
 
 _BITS = (128, 64, 32, 16, 8, 4, 2, 1)
