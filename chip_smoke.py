@@ -254,6 +254,8 @@ from pathlib import Path
 
 import numpy as np
 
+from pcc_geo_cnn_v2_tpu_torch.utils.trace import PREFIX as SPAN_PREFIX
+
 REPO = Path(__file__).resolve().parent
 ASSET = REPO / "pcc_geo_cnn_v2_tpu/assets/bench_c3p.msgpack.gz"
 RESOLUTION, LEVEL, BLOCK, BATCH = 1024, 4, 64, 32
@@ -1288,6 +1290,11 @@ def host_d1_mse(block, x_hat, t):
 
 
 def device_us(evt):
+    """Device µs of a profiler event; 0 for the port's span annotations
+    (``utils/trace``: a ``pcc.`` range also appears on the device's
+    timeline), which are not device work."""
+    if evt.key.startswith(SPAN_PREFIX):
+        return 0.0
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
             return float(getattr(evt, attr))

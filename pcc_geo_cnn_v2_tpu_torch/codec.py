@@ -82,7 +82,6 @@ from __future__ import annotations
 import copy
 import logging
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -123,6 +122,7 @@ from pcc_geo_cnn_v2_tpu_torch.ops.voxel import (
     unpack_coords,
     voxelize,
 )
+from pcc_geo_cnn_v2_tpu_torch.utils import trace
 from pcc_geo_cnn_v2_tpu_torch.utils.metrics import compute_metrics
 from pcc_geo_cnn_v2_tpu_torch.utils.octree import (
     block_origins,
@@ -428,19 +428,20 @@ class BlockCodec:
             return res
         logger.info("bucket sweep overflow: re-sweeping %d block(s) at "
                     "K = B³", len(rows))
-        dev = self.device
-        sel = dict(opt_metrics=opt_metrics, max_deltas=max_deltas)
-        if any(m in D2_METRICS for m in opt_metrics):
-            sel["nrm"] = nrm[rows].to(dev)
-        x_hat = res["x_hat"][rows].to(dev)
-        picks = select_thresholds_d1_bucket(
-            x_hat[..., 0], pts[rows].to(dev), self.thr_dev,
-            K=self.block_size ** 3, **sel)[0]
-        thr = self.thr_dev[picks.long()]
-        rows = rows.to(res["picks"].device)
-        res["picks"][rows] = picks.to(rows.device)
-        for m, mask in enumerate(res["masks"]):
-            mask[rows] = self._masks(x_hat, thr[:, m]).to(rows.device)
+        with trace.span("codec.sweep_rerun"):
+            dev = self.device
+            sel = dict(opt_metrics=opt_metrics, max_deltas=max_deltas)
+            if any(m in D2_METRICS for m in opt_metrics):
+                sel["nrm"] = nrm[rows].to(dev)
+            x_hat = res["x_hat"][rows].to(dev)
+            picks = select_thresholds_d1_bucket(
+                x_hat[..., 0], pts[rows].to(dev), self.thr_dev,
+                K=self.block_size ** 3, **sel)[0]
+            thr = self.thr_dev[picks.long()]
+            rows = rows.to(res["picks"].device)
+            res["picks"][rows] = picks.to(rows.device)
+            for m, mask in enumerate(res["masks"]):
+                mask[rows] = self._masks(x_hat, thr[:, m]).to(rows.device)
         return res
 
     def _chunk_offsets(self, offsets, lo, hi, device):
@@ -571,67 +572,73 @@ class BlockCodec:
         size = self.block_size
         budget = max(int(2 ** np.ceil(np.log2(max(len(b) for b in blocks)))),
                      64)
-        flat, offsets = flatten_blocks(blocks)
-        devices = {lane.device for lane in self._lanes}
-        flat_dev = {d: torch.as_tensor(pack_coords(flat, size), device=d)
-                    for d in devices}
-        nrm_dev = None
-        if with_normals:
-            nrm_flat = flatten_blocks(blocks, cols=(3, 4, 5),
-                                      dtype=np.float32)[0]
-            check_normals(nrm_flat)  # once per cloud, on the host
-            nrm_dev = {d: torch.as_tensor(nrm_flat, device=d)
-                       for d in devices}
         opt_names = [f"{m}_{d}" for d in max_deltas for m in opt_metrics]
         n_metrics = len(opt_names)
-
-        t0 = time.time()
         host = {k: [] for k in self._sym_keys + ("picks",)}
         occ_chunks, mask_chunks = [], [[] for _ in range(n_metrics)]
         pts_chunks = []
         chunks = self._chunks(n)
-        n_lanes = len(self._lanes)
-        for first in range(0, len(chunks), n_lanes):
-            # a round: one chunk a device, all dispatched before any fetch
-            sent = []
-            for lane, (lo, hi) in zip(self._lanes,
-                                      chunks[first:first + n_lanes]):
-                pts = self.chunk_points(flat_dev[lane.device], offsets, lo,
-                                        hi, budget)
-                nrm = None if nrm_dev is None else self.chunk_normals(
-                    nrm_dev[lane.device], offsets, lo, hi, budget)
-                sent.append((lo, hi, pts, nrm, self._dispatch_chunk(
-                    pts, hi - lo, opt_metrics, max_deltas, nrm, lane)))
-            for lo, hi, pts, nrm, res in sent:
-                res = self._rerun(res, pts, nrm, opt_metrics, max_deltas)
-                for m in range(n_metrics):
-                    mask_chunks[m].append(
-                        res["masks"][m][:hi - lo].to(self.device))
-                occ_chunks.append(res["occ"][:hi - lo].to(self.device))
-                if with_normals:
-                    pts_chunks.append(pts[:hi - lo].to(self.device))
-                for key in host:
-                    host[key].append(res[key][:hi - lo].cpu().numpy())
-        out = {k: np.concatenate(v) for k, v in host.items()}
-        occ_cat = torch.cat(occ_chunks)
-        masks = [torch.cat(c) for c in mask_chunks]
-        t_device = time.time() - t0
+        lanes = self._lanes
+        t_device = 0.0  # the rounds: dispatch and fetch
+        with trace.span("codec.encode"):
+            flat, offsets = flatten_blocks(blocks)
+            devices = {lane.device for lane in lanes}
+            flat_dev = {d: torch.as_tensor(pack_coords(flat, size), device=d)
+                        for d in devices}
+            nrm_dev = None
+            if with_normals:
+                nrm_flat = flatten_blocks(blocks, cols=(3, 4, 5),
+                                          dtype=np.float32)[0]
+                check_normals(nrm_flat)  # once per cloud, on the host
+                nrm_dev = {d: torch.as_tensor(nrm_flat, device=d)
+                           for d in devices}
+            for first in range(0, len(chunks), len(lanes)):
+                # a round: one chunk a device, all dispatched before any
+                # fetch
+                sent = []
+                with trace.span("codec.dispatch") as dispatch:
+                    for lane, (lo, hi) in zip(
+                            lanes, chunks[first:first + len(lanes)]):
+                        pts = self.chunk_points(flat_dev[lane.device],
+                                                offsets, lo, hi, budget)
+                        nrm = None if nrm_dev is None else self.chunk_normals(
+                            nrm_dev[lane.device], offsets, lo, hi, budget)
+                        sent.append((lo, hi, pts, nrm, self._dispatch_chunk(
+                            pts, hi - lo, opt_metrics, max_deltas, nrm,
+                            lane)))
+                with trace.span("codec.fetch") as fetch:
+                    for lo, hi, pts, nrm, res in sent:
+                        res = self._rerun(res, pts, nrm, opt_metrics,
+                                          max_deltas)
+                        for m in range(n_metrics):
+                            mask_chunks[m].append(
+                                res["masks"][m][:hi - lo].to(self.device))
+                        occ_chunks.append(
+                            res["occ"][:hi - lo].to(self.device))
+                        if with_normals:
+                            pts_chunks.append(pts[:hi - lo].to(self.device))
+                        for key in host:
+                            host[key].append(
+                                res[key][:hi - lo].cpu().numpy())
+                t_device += dispatch.seconds + fetch.seconds
+            out = {k: np.concatenate(v) for k, v in host.items()}
+            occ_cat = torch.cat(occ_chunks)
+            masks = [torch.cat(c) for c in mask_chunks]
 
-        t0 = time.time()
-        strings_list = self.entropy_encode_all(out)
-        t_entropy = time.time() - t0
-        t0 = time.time()
-        x_hat_points = [unpack_mask_coords(m.cpu().numpy(), size)
-                        for m in masks]
-        metadata = self._select_best_device(
-            binstr, x_hat_points, occ_cat, masks, opt_names, points,
-            resolution, level, need_metrics=need_metrics,
-            pts_dev=torch.cat(pts_chunks) if with_normals else None,
-            nrm_host=(pack_attrs(blocks, [3, 4, 5], budget)
-                      if with_normals else None))
+            with trace.span("codec.entropy_encode") as entropy:
+                strings_list = self.entropy_encode_all(out)
+            with trace.span("codec.select") as select:
+                x_hat_points = [unpack_mask_coords(m.cpu().numpy(), size)
+                                for m in masks]
+                metadata = self._select_best_device(
+                    binstr, x_hat_points, occ_cat, masks, opt_names, points,
+                    resolution, level, need_metrics=need_metrics,
+                    pts_dev=torch.cat(pts_chunks) if with_normals else None,
+                    nrm_host=(pack_attrs(blocks, [3, 4, 5], budget)
+                              if with_normals else None))
         logger.info("compress_blocks_device_opt(%d blocks): device %.2fs, "
-                    "entropy %.2fs, select %.2fs", n, t_device, t_entropy,
-                    time.time() - t0)
+                    "entropy %.2fs, select %.2fs", n, t_device,
+                    entropy.seconds, select.seconds)
         by_metric = out["picks"].T.tolist()
         data_list = [list(zip(strings_list, by_metric[m["idx"]]))
                      for m in metadata]
@@ -641,16 +648,17 @@ class BlockCodec:
                                x_hat_blocks, points, resolution):
         """Exact full-cloud D1 metrics of one candidate: halo-EDT sums on
         the device, the rare > halo outliers resolved on the host."""
-        sums = blockwise_d1_sums(occ_packed, mask_packed, origins,
-                                 self.block_size, halo=self.halo_width,
-                                 batch=self.halo_batch)
-        if sums["n_b"] == 0:  # all blocks hit the failure guard
-            return {"d1_psnr": -np.inf}
-        return d1_metrics_from_sums(
-            sums, resolution - 1, points_a=points[:, :3],
-            resolve_a=lambda q: resolve_outliers(
-                q, x_hat_blocks, origins, self.block_size,
-                full_tree_limit=2_000_000))
+        with trace.span("codec.d1_metrics"):
+            sums = blockwise_d1_sums(occ_packed, mask_packed, origins,
+                                     self.block_size, halo=self.halo_width,
+                                     batch=self.halo_batch)
+            if sums["n_b"] == 0:  # all blocks hit the failure guard
+                return {"d1_psnr": -np.inf}
+            return d1_metrics_from_sums(
+                sums, resolution - 1, points_a=points[:, :3],
+                resolve_a=lambda q: resolve_outliers(
+                    q, x_hat_blocks, origins, self.block_size,
+                    full_tree_limit=2_000_000))
 
     def _d2_full_cloud_metrics(self, pts_dev, nrm_host, mask_packed,
                                x_hat_blocks, origins, points, resolution):
@@ -741,8 +749,8 @@ class BlockCodec:
         flat_dev = torch.as_tensor(pack_coords(flat, size), device=self.device)
         host = {k: [] for k in self._sym_keys}
         mask_chunks, picks = [], []
-        t0 = time.time()
-        with ThreadPoolExecutor(self.threads) as pool:
+        with (trace.span("codec.host_sweep") as sweep,
+              ThreadPoolExecutor(self.threads) as pool):
             for lo, hi in self._chunks(n):
                 res = self.canonical_chunk(
                     self.chunk_points(flat_dev, offsets, lo, hi, budget),
@@ -771,21 +779,20 @@ class BlockCodec:
                 mask_chunks.append(torch.stack(
                     [self._masks(x_hat, thr[:, m])
                      for m in range(thr.shape[1])], dim=1).cpu())
-        out = {k: np.concatenate(v) for k, v in host.items()}
-        t_sweep = time.time() - t0
-        t0 = time.time()
-        strings_list = self.entropy_encode_all(out)
-        t_entropy = time.time() - t0
-        t0 = time.time()
-        packed = torch.cat(mask_chunks).numpy()  # [n, metrics, B³/8]
-        x_hat_points = [unpack_mask_coords(np.ascontiguousarray(
-            packed[:, m]), size) for m in range(packed.shape[1])]
-        metadata = select_best_per_opt_metric(
-            binstr, x_hat_points, level, opt_names, points, resolution,
-            with_normals)
+            out = {k: np.concatenate(v) for k, v in host.items()}
+        with trace.span("codec.entropy_encode") as entropy:
+            strings_list = self.entropy_encode_all(out)
+        with trace.span("codec.select") as select:
+            packed = torch.cat(mask_chunks).numpy()  # [n, metrics, B³/8]
+            x_hat_points = [unpack_mask_coords(np.ascontiguousarray(
+                packed[:, m]), size) for m in range(packed.shape[1])]
+            metadata = select_best_per_opt_metric(
+                binstr, x_hat_points, level, opt_names, points, resolution,
+                with_normals)
         logger.info("compress_blocks(%d blocks, fixed_threshold=%s): device "
                     "+ host sweep %.2fs, entropy %.2fs, select %.2fs", n,
-                    fixed_threshold, t_sweep, t_entropy, time.time() - t0)
+                    fixed_threshold, sweep.seconds, entropy.seconds,
+                    select.seconds)
         by_metric = np.concatenate(picks).T.tolist()
         data_list = [list(zip(strings_list, by_metric[m["idx"]]))
                      for m in metadata]
@@ -812,35 +819,43 @@ class BlockCodec:
         """
         n = len(payload)
         bs = self.batch_blocks
-        marks = [time.time()]
         thr = np.array([self.thresholds[t] for _, t in payload], np.float32)
-        if self.is_v2:
-            z_syms = rc.decode_batch([p[0][1] for p in payload],
-                                     self._channel_indexes(self.z_shape),
-                                     self.eb_table, per_stream=False)
-            marks.append(time.time())
-            y_idx = np.concatenate(self._round_robin(
-                n, lambda lane, lo, hi: self._decode_z(
-                    self._pad_rows(z_syms[lo:hi], bs, lane), lane)[:hi - lo]))
-            marks.append(time.time())
-            y_syms = rc.decode_batch([p[0][0] for p in payload], y_idx,
-                                     self.gc_table, per_stream=True)
-        else:
-            marks += [marks[-1]] * 2  # no z stream, no decode_z
-            y_syms = rc.decode_batch([p[0][0] for p in payload],
-                                     self._channel_indexes(self.y_shape),
-                                     self.eb_table, per_stream=False)
-        marks.append(time.time())
-        masks = self._round_robin(n, lambda lane, lo, hi: self._masks(
-            self._decode_y(self._pad_rows(y_syms[lo:hi], bs, lane), lane),
-            self._pad_rows(thr[lo:hi], bs, lane))[:hi - lo])
-        marks.append(time.time())
-        masks = np.concatenate(masks)
-        blocks = unpack_mask_coords(masks, self.block_size)
-        marks.append(time.time())
+        t_z = t_dz = 0.0  # v1: no z string, no decode_z
+        with trace.span("codec.decode"):
+            if self.is_v2:
+                with trace.span("codec.z_rans") as z_rans:
+                    z_syms = rc.decode_batch(
+                        [p[0][1] for p in payload],
+                        self._channel_indexes(self.z_shape), self.eb_table,
+                        per_stream=False)
+                with trace.span("codec.decode_z") as decode_z:
+                    y_idx = np.concatenate(self._round_robin(
+                        n, lambda lane, lo, hi: self._decode_z(
+                            self._pad_rows(z_syms[lo:hi], bs, lane),
+                            lane)[:hi - lo]))
+                t_z, t_dz = z_rans.seconds, decode_z.seconds
+                with trace.span("codec.y_rans") as y_rans:
+                    y_syms = rc.decode_batch([p[0][0] for p in payload],
+                                             y_idx, self.gc_table,
+                                             per_stream=True)
+            else:
+                with trace.span("codec.y_rans") as y_rans:
+                    y_syms = rc.decode_batch(
+                        [p[0][0] for p in payload],
+                        self._channel_indexes(self.y_shape), self.eb_table,
+                        per_stream=False)
+            with trace.span("codec.decode_y") as decode_y:
+                masks = self._round_robin(n, lambda lane, lo, hi: self._masks(
+                    self._decode_y(self._pad_rows(y_syms[lo:hi], bs, lane),
+                                   lane),
+                    self._pad_rows(thr[lo:hi], bs, lane))[:hi - lo])
+            with trace.span("codec.unpack") as unpack:
+                masks = np.concatenate(masks)
+                blocks = unpack_mask_coords(masks, self.block_size)
         logger.info("decompress_blocks(%d blocks): z rANS %.3fs, decode_z "
                     "%.3fs, y rANS %.3fs, decode_y+masks %.3fs, unpack "
-                    "%.3fs", n, *np.diff(marks))
+                    "%.3fs", n, t_z, t_dz, y_rans.seconds, decode_y.seconds,
+                    unpack.seconds)
         if not return_debug:
             return blocks
         debug = {"y_sym": y_syms, "packed_masks": masks}

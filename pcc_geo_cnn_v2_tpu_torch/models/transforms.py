@@ -31,12 +31,15 @@ Padding follows XLA's ``SAME`` rules exactly, written out:
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from pcc_geo_cnn_v2_tpu_torch.utils import trace
 
 __all__ = ["Conv", "ConvTranspose", "subpixel_conv_transpose",
            "AnalysisTransformV1", "SynthesisTransformV1", "AnalysisBlock",
@@ -146,7 +149,12 @@ class ConvTranspose(nn.Module):
                 return F.conv3d(xp, weight, bias)
             return _add_bias(_conv3d(xp, weight), bias)
         outs = [(n - 1) * s + pad_a + pad_b - k + 2 for n in x.shape[2:]]
-        return _add_bias(subpixel_conv_transpose(x, weight, s, outs), bias)
+        # a span in passes that record no graph (the codec's): in training
+        # the layer's backward kernels would fall outside it
+        with (contextlib.nullcontext() if torch.is_grad_enabled()
+              else trace.span("transforms.conv_transpose")):
+            return _add_bias(subpixel_conv_transpose(x, weight, s, outs),
+                             bias)
 
 
 def subpixel_conv_transpose(x, weight, s, outs, shifts=(0, 0, 0)):

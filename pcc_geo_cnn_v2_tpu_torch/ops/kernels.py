@@ -9,9 +9,10 @@ use, or all at once — one ``nvcc`` per source, started together — through
 
 ``launches`` counts kernel launches per wrapper; a wrapper adds one where
 it launches its kernel (:func:`launch`) and nowhere else, so a run can show
-that its main path went through the kernels. Wrappers are called from
-several threads at once (clouds in flight, ``bench.py``), so the counts
-change under a lock.
+that its main path went through the kernels. The counts are the
+``launches.<kernel>`` counters of the port's one registry
+(:mod:`utils.trace`), which change under its lock: wrappers are called
+from several threads at once (clouds in flight, ``bench.py``).
 """
 
 from __future__ import annotations
@@ -19,13 +20,14 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
-import threading
 import time
+from collections.abc import Mapping
 from pathlib import Path
 
 import torch
 
 from pcc_geo_cnn_v2_tpu_torch import native
+from pcc_geo_cnn_v2_tpu_torch.utils import trace
 
 __all__ = ["KERNELS", "launches", "reset_launches", "count", "build_all",
            "load", "check_cuda_tensor", "check_launch", "stream_ptr",
@@ -61,21 +63,38 @@ KERNELS = {
     }),
 }
 
-launches = {name: 0 for name in KERNELS}
-_launches_lock = threading.Lock()
+
+class _Launches(Mapping):
+    """Launches by kernel name: a read-only view of the registry's
+    ``launches.<kernel>`` counters."""
+
+    def __getitem__(self, name):
+        if name not in KERNELS:
+            raise KeyError(name)
+        return trace.value("launches." + name)
+
+    def __iter__(self):
+        return iter(KERNELS)
+
+    def __len__(self):
+        return len(KERNELS)
+
+    def __repr__(self):
+        return repr(dict(self))
+
+
+launches = _Launches()
 
 
 def reset_launches():
-    with _launches_lock:
-        for k in launches:
-            launches[k] = 0
+    trace.reset("launches.")
 
 
 def count(name):
-    """Add one launch of kernel ``name``: a read-modify-write of a dict
-    that several threads share, so under a lock."""
-    with _launches_lock:
-        launches[name] += 1
+    """Add one launch of kernel ``name``."""
+    if name not in KERNELS:
+        raise KeyError(name)
+    trace.count("launches." + name)
 
 
 def _nvcc_cmd():

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from pcc_geo_cnn_v2_tpu_torch.utils import trace
+
 __all__ = [
     "morton_codes",
     "partition_octree",
@@ -95,7 +97,12 @@ def partition_octree(points, bbox_min, bbox_max, level):
         local block coordinates, Morton order; binstr is a list of uint8
         child masks (None when level == 0 or points is empty).
     """
-    points = np.asarray(points)
+    with trace.span("octree.partition"):
+        return _partition(np.asarray(points), bbox_min, bbox_max, level)
+
+
+def _partition(points, bbox_min, bbox_max, level):
+    """:func:`partition_octree` inside its span."""
     if len(points) == 0 or level == 0:
         return [points], None
     bbox_min = np.asarray(bbox_min)
@@ -174,13 +181,14 @@ def departition_octree(blocks, binstr, bbox_min, bbox_max, level):
     traversal order and translates each block's xyz back. Blocks are
     returned as new arrays; extra columns pass through.
     """
-    origins = block_origins(binstr, bbox_min, bbox_max, level)
-    assert len(origins) == len(blocks), (
-        f"binstr describes {len(origins)} blocks, got {len(blocks)}"
-    )
-    out = []
-    for block, origin in zip(blocks, origins):
-        block = np.array(block, copy=True)
-        block[:, :3] = block[:, :3] + origin.astype(block.dtype)
-        out.append(block)
-    return out
+    with trace.span("octree.departition"):
+        origins = block_origins(binstr, bbox_min, bbox_max, level)
+        assert len(origins) == len(blocks), (
+            f"binstr describes {len(origins)} blocks, got {len(blocks)}"
+        )
+        out = []
+        for block, origin in zip(blocks, origins):
+            block = np.array(block, copy=True)
+            block[:, :3] = block[:, :3] + origin.astype(block.dtype)
+            out.append(block)
+        return out

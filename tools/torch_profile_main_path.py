@@ -62,6 +62,10 @@ import numpy as np
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
+from pcc_geo_cnn_v2_tpu_torch.utils import trace  # noqa: E402
+
+SPAN_PREFIX = trace.PREFIX
+
 FAMILIES = (("K1 bucket_colsums", ("bucket_colsums",)),
             ("K2 halo_edt", ("halo_edt",)),
             ("K3 bucket_colsums_d2", ("bucket_d2",)),
@@ -110,6 +114,11 @@ def family(name):
 
 
 def device_us(evt):
+    """Device µs of a profiler event; 0 for the port's span annotations
+    (``utils/trace``: a ``pcc.`` range also appears on the device's
+    timeline), which are not device work."""
+    if evt.key.startswith(SPAN_PREFIX):
+        return 0.0
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
@@ -249,7 +258,8 @@ def busy_union_ms(prof):
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if getattr(e, "device_type", None) == DeviceType.CUDA
-                   and e.time_range.end > e.time_range.start)
+                   and e.time_range.end > e.time_range.start
+                   and not e.name.startswith(SPAN_PREFIX))
     total, end = 0.0, None
     for lo, hi in spans:
         if end is None or lo > end:
