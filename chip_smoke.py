@@ -59,7 +59,8 @@ exit):
    ``decompress_blocks``. The decoded blocks must equal the encoder's
    embedded reconstruction bit for bit, the encoder's device D1 PSNR must
    equal a host KD-tree D1 PSNR of the decoded cloud, K1 and K2 must have
-   launched.
+   launched, and ``conv_one_out`` once a chunk in the encoder's canonical
+   decode and once in the decoder's.
 7. Path A, D2 encode with normals: ``opt_metrics=("d1_mse", "d2_mse"),
    with_normals=True`` → two containers, each decoded bit-exactly; the d1
    stream's bytes equal phase 6's; point by point, every neighbour the
@@ -132,7 +133,8 @@ exit):
    steps of the first, bit for bit, under
    ``torch.use_deterministic_algorithms(True)``; 3 steps under
    ``torch.profiler`` (device busy share, convolutions against everything
-   else); then ``save_asset`` of the trained weights, read back by
+   else); ``conv_one_out`` launches only in the val pass, which records no
+   graph; then ``save_asset`` of the trained weights, read back by
    ``cli.common.load_params``, through the d1 path on the whole cloud:
    bit-exact, encoder D1 PSNR equal to the host KD-tree's, K1 and K2
    launched.
@@ -164,7 +166,8 @@ exit):
    blocks of 64³ in one block): the unsharded ``encode_syms`` /
    ``decode_y`` on the card; at world 1 on ``nccl`` the sharded encode and
    decode bit-equal to them (zero halos: the same convs), no kernel
-   launched; then 2 processes on the one card over ``gloo`` (halos staged
+   launched but ``conv_one_out`` (the synthesis' last layer, as
+   unsharded); then 2 processes on the one card over ``gloo`` (halos staged
    through the host): under 5e-4 of the symbols differ from the unsharded
    ones, and the rANS round trip — the symbols coded to bytes, decoded
    from the bytes alone with ``decode_z`` unsharded, y decoded sharded —
@@ -225,19 +228,32 @@ exit):
    the encoder's dump passes. The stream's payload bytes equal phase 6's,
    the decoded PLY equals phase 6's decoded cloud, and the dump's x_hat
    (the fused ``encode``) equals the canonical x_hat of every chunk bit for
-   bit.
+   bit; the launches are phase 6's, and ``conv_one_out`` once more a chunk
+   (the dump's encode).
+23. ``conv_one_out`` (``csrc/conv_one_out.cu``: the synthesis transforms'
+   last layer, one output channel) at c2's k9 stride-2 32 -> 1
+   (``ConvTranspose_2``, the committed ``rd/c2/2.00e-04`` weights) and
+   c3p's k3 stride-1 16 -> 1 (``ConvTranspose_0``), on the activations
+   entering each layer in the canonical decode of the cloud's first 128
+   blocks: the kernel against the layer's cuDNN form (within
+   ``ONE_OUT_TOL`` of the largest |value|) and against its plain version
+   on 7 blocks; the module's no-graph call equal to the kernel's; every
+   block's output bit-equal alone, in 7-block calls, moved 37 places in
+   the batch and over two calls; the median ms of a 128-block call (bursts
+   of four) beside the cuDNN form's (``library_ms``) and the bound.
 
 The launch counts are set to 0 just before each path and read just after
 (for the bench, inside its process, around its timed window; for phase 20,
 around its in-process experiment; for phase 21, around each rd_eval
-run). Phases 12-22 print their seconds.
+run). Phases 12-23 print their seconds.
 Prints a ``kernels`` JSON line (per kernel: launches on its path and on
 every path, max error against the plain version, its median time (K1,
 K2, K3, K4 and K5 per call in bursts of four calls, so that the wrapper's
 host time overlaps the kernels), the plain time, the least time the card could take for the
 same work and the share of it reached (K1 and K3 at the chunk and the
 rerun, K2, K4, K5), the CUDA launches of one call (K2, K3, K5) and, for K4, the
-cuDNN chain's time and ms / library), the card line, and last
+cuDNN chain's time and ms / library; for ``conv_one_out`` its rows of
+phase 23), the card line, and last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -323,6 +339,14 @@ D2_PSNR_TOL_DB = 1.0
 RD_ASSETS = REPO / "pcc_geo_cnn_v2_tpu/assets/rd"
 V1_LAMBDA = "2.00e-04"
 CUT_BLOCKS = 16
+# phase 23: conv_one_out on the activations of the cloud's first
+# ONE_OUT_BLOCKS blocks (the benchmark's chunk), held against the layer's
+# cuDNN form within ONE_OUT_TOL of the output's largest |value| (both sum
+# ~3,000 f32 products a voxel at k9, in other orders)
+ONE_OUT_BLOCKS, ONE_OUT_TOL = 128, 1e-5
+# kernels that run only in passes that record no autograd graph: a
+# training step launches none of them, its validation passes may
+NO_GRAD_KERNELS = ("conv_one_out",)
 # phase 15: training c3p at batch BATCH (the JAX default of 32); the card's
 # step against the CPU's on PARITY_BLOCKS blocks, loss within 1e-5
 # relative, every gradient leaf within 1e-3 of its largest |g| (cuDNN and
@@ -1482,7 +1506,9 @@ def check_training(device, blocks, params, drive, expect_launches, points,
         torch.cuda.synchronize()
         t_fit = time.time() - t0
         peak = torch.cuda.max_memory_allocated()
-        assert not any(kernels.launches.values()), kernels.launches
+        counts_fit = dict(kernels.launches)
+        assert not any(v for k, v in counts_fit.items()
+                       if k not in NO_GRAD_KERNELS), counts_fit
         records = [json.loads(line) for line in
                    (run_dir / "train_log.jsonl").read_text().splitlines()]
         train = [r for r in records if r["split"] == "train"]
@@ -1541,7 +1567,9 @@ def check_training(device, blocks, params, drive, expect_launches, points,
             f"({100 * busy / 1e3 / wall:.1f}%, idle "
             f"{100 - 100 * busy / 1e3 / wall:.1f}%), convolutions "
             f"{conv:.1f} ms ({100 * conv / busy:.1f}% of device time), "
-            f"everything else {busy - conv:.1f} ms; no kernel launched")
+            f"everything else {busy - conv:.1f} ms; no kernel launched in a "
+            f"step, conv_one_out {counts_fit['conv_one_out']} times in the "
+            f"val pass")
 
         # 4. export, read back, encode the whole cloud through K1 and K2
         tree = params_to_jax(trainer.model.state_dict())
@@ -2018,7 +2046,10 @@ def check_spatial(device, points, card):
                 # zero planes for halos, and no other process on the card
                 half = _half_slab_ms(model, x, whole["y_sym"], group)
         assert backend == backend_for(device, 1), backend
-        assert not any(counts.values()), counts
+        # the synthesis' last layer (16 -> 1) through conv_one_out, as
+        # unsharded
+        assert counts["conv_one_out"] > 0 and not any(
+            v for k, v in counts.items() if k not in NO_GRAD_KERNELS), counts
         for k, v in want.items():
             assert torch.equal(whole[k], v), f"world 1: {k} differs"
         assert torch.equal(x_hat, x_hat_want), "world 1: x_hat differs"
@@ -2027,7 +2058,7 @@ def check_spatial(device, points, card):
             f"unsharded encode and decode, the round trip's "
             f"{rec_1['bytes']} bytes decoded bit-exactly; encode "
             f"{rec_1['enc_s']:.4f} s, decode {rec_1['dec_s']:.4f} s on "
-            f"{card}; no kernel launched")
+            f"{card}; launches {counts}")
         del whole, x_hat, x_hat_dec
         if device.type == "cuda":
             log(f"sp one world-{SP_WORLD} slab alone at world 1: device ms "
@@ -2664,7 +2695,8 @@ def check_rd_tools(device, card, expect_launches):
         torch.cuda.synchronize()
         walls["train_sweep"] = time.time() - t0
         counts_tr = dict(kernels.launches)
-        assert not any(counts_tr.values()), counts_tr
+        assert not any(v for k, v in counts_tr.items()
+                       if k not in NO_GRAD_KERNELS), counts_tr
         # steps advance K_INNER at a time, as the JAX tool's scan calls
         k = -(-RD21_TRAIN_STEPS // rd_train_all.K_INNER) * rd_train_all.K_INNER
         for d in dirs:
@@ -2676,7 +2708,8 @@ def check_rd_tools(device, card, expect_launches):
             f"{RD21_TRAIN_SEEDS} ({walls['training blocks']:.1f} s to make "
             f"them), {walls['train_sweep']:.1f} s "
             f"({2 * k / walls['train_sweep']:.2f} steps/s with the set-up); "
-            f"no kernel launched")
+            f"no kernel launched in a step, conv_one_out "
+            f"{counts_tr['conv_one_out']} times in its no-graph passes")
         t0 = time.time()
         export_rd_assets.export(tmp / "models", [dirs[0].parent.name],
                                 tmp / "export")
@@ -2770,9 +2803,11 @@ def check_debug_cli(device, card, codec, points, chunk_points, blob_d1,
                     ("bucket_colsums", "halo_edt"),
                     ("bucket_colsums_d2", "edt_sweep", "fused_tail",
                      "fused_tail_slab"))
-    assert counts == counts_d1, (counts, counts_d1)
-    assert keys == ["x_hat", "y_idx", "y_sym", "z_sym"], keys
     n = len(x_hat)
+    # the dump's fused encode decodes every chunk once more
+    assert counts == {**counts_d1, "conv_one_out": counts_d1["conv_one_out"]
+                      + len(codec._chunks(n))}, (counts, counts_d1)
+    assert keys == ["x_hat", "y_idx", "y_sym", "z_sym"], keys
     assert x_hat.shape == (n, BLOCK, BLOCK, BLOCK, 1), x_hat.shape
     t0 = time.time()
     for lo, hi in codec._chunks(n):
@@ -2789,6 +2824,146 @@ def check_debug_cli(device, card, codec, points, chunk_points, blob_d1,
         + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
     log(f"phase 22: {time.time() - t_phase:.1f} s [{card}]")
     return counts
+
+
+# phase 23: conv_one_out, the synthesis transforms' last layer (one output
+# channel), on real activations of a ONE_OUT_BLOCKS-block chunk
+
+
+def one_out_inputs(codec, layer, pts):
+    """The activations entering ``layer`` (a model's one-output-channel
+    transposed conv) in ``codec``'s canonical decode of the blocks of
+    ``pts``: [N, cin, S, S, S] f32."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.ops.voxel import voxelize
+
+    seen = []
+    hook = layer.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0]))
+    try:
+        with torch.no_grad():
+            model = codec.model
+            y_sym = model.encode_syms(voxelize(pts, BLOCK))["y_sym"]
+            codec._decode_y(y_sym)
+    finally:
+        hook.remove()
+    assert len(seen) == 1, len(seen)
+    return seen[0].contiguous()
+
+
+def one_out_layers(device, codec, chunk_points):
+    """(label, layer, activations) of c2's k9 32 -> 1 and c3p's k3 16 -> 1
+    synthesis layers (the committed weights: ``rd/c2/V1_LAMBDA``, and
+    ``codec``'s c3p) on the cloud's first ``ONE_OUT_BLOCKS`` blocks
+    (``chunk_points(lo, hi)`` gives a chunk's point lists)."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.codec import BlockCodec
+    from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
+    from pcc_geo_cnn_v2_tpu_torch.weights import load_asset_tree
+
+    pts = torch.cat([chunk_points(lo, lo + BATCH)
+                     for lo in range(0, ONE_OUT_BLOCKS, BATCH)])
+    codec_c2 = BlockCodec(build_model("c2"), load_asset_tree(
+        RD_ASSETS / "c2" / f"{V1_LAMBDA}.msgpack.gz"), block_size=BLOCK,
+        batch_blocks=BATCH, device=device)
+    return [(label, layer, one_out_inputs(c, layer, pts)) for label, c, layer
+            in (("c2 ConvTranspose_2", codec_c2,
+                 codec_c2.model.synthesis_t.ConvTranspose_2),
+                ("c3p ConvTranspose_0", codec,
+                 codec.model.synthesis_t.ConvTranspose_0))]
+
+
+def one_out_library(x, weight, bias, s):
+    """The layer's cuDNN form, as ``ConvTranspose.forward`` computes it where
+    the kernel does not route: s³ forward convs at stride 2, one padded
+    ``conv3d`` at stride 1."""
+    import torch.nn.functional as F
+
+    from pcc_geo_cnn_v2_tpu_torch.models.transforms import (
+        subpixel_conv_transpose,
+        transpose_pads,
+    )
+
+    k = weight.shape[2]
+    if s == 1:
+        return F.conv3d(F.pad(x, transpose_pads(k, 1) * 3), weight, bias)
+    outs = [s * n for n in x.shape[2:]]
+    return subpixel_conv_transpose(x, weight, s, outs) + bias.view(
+        1, -1, 1, 1, 1)
+
+
+def check_conv_one_out(card, layers):
+    """Phase 23 (module docstring). ``layers``: (label, layer, x) with x
+    the real activations entering ``layer``. Returns one row a shape."""
+    import torch
+
+    from pcc_geo_cnn_v2_tpu_torch.codec import deterministic_convs
+    from pcc_geo_cnn_v2_tpu_torch.ops import conv_one_out as coo
+    from pcc_geo_cnn_v2_tpu_torch.ops import kernels
+
+    t_phase = time.time()
+    deterministic_convs()
+    rows = []
+    for label, layer, x in layers:
+        k, s, (n, cin) = layer.k, layer.s, x.shape[:2]
+        w, b = layer.weight.detach(), layer.bias.detach()
+        assert n == ONE_OUT_BLOCKS, (label, x.shape)
+        table = coo.pack_weights(w, s)
+
+        def kernel(xs=x):
+            return coo.conv_transpose_one_out(xs, table, b, k, s)
+
+        kernels.reset_launches()
+        with torch.no_grad():
+            assert coo.routes(x, w, s), label
+            got = kernel()
+            assert kernels.launches["conv_one_out"] == 1
+            # the module routes its no-graph calls through the kernel
+            assert torch.equal(layer(x), got), f"{label}: module differs"
+            want = one_out_library(x, w, b, s)
+            err = float((got - want).abs().max() / want.abs().max())
+            assert err <= ONE_OUT_TOL, (label, err)
+            plain = coo.conv_transpose_one_out_plain(x[:7], table, b, k, s)
+            err_plain = float((got[:7] - plain).abs().max()
+                              / plain.abs().max())
+            assert err_plain <= ONE_OUT_TOL, (label, err_plain)
+            # every block's output alone, in 7-block calls and moved to
+            # another place in the batch: bit for bit the 128-block call's
+            for i in range(n):
+                assert torch.equal(kernel(x[i:i + 1]), got[i:i + 1]), \
+                    f"{label}: block {i} alone differs"
+            for lo in range(0, n, 7):
+                assert torch.equal(kernel(x[lo:lo + 7]), got[lo:lo + 7]), \
+                    f"{label}: blocks {lo}.. in a 7-block call differ"
+            rolled = kernel(torch.roll(x, 37, 0).contiguous())
+            assert torch.equal(rolled, torch.roll(got, 37, 0)), \
+                f"{label}: blocks moved in the batch differ"
+            assert torch.equal(kernel(), got), f"{label}: two calls differ"
+            ms = time_ms(kernel, 10, burst=4)
+            library_ms = time_ms(lambda: one_out_library(x, w, b, s), 5)
+        vox_in = x[0, 0].numel()
+        flops = 2 * vox_in * k ** 3 * cin * n
+        nbytes = 4 * (x.numel() + got.numel() + w.numel())
+        bound_ms, bound_by = bound(nbytes, 0, flops)
+        row = {"shape": label, "k": k, "s": s, "cin": cin, "blocks": n,
+               "ms": ms, "us_a_block": 1e3 * ms / n, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / ms, "tflops": flops / ms / 1e9,
+               "max_err_of_max": err, "plain_err_of_max": err_plain}
+        rows.append(row)
+        log(f"conv_one_out {label} (k{k} s{s} {cin} -> 1, {n} blocks of "
+            f"{tuple(x.shape[2:])} -> {tuple(got.shape[2:])}): {ms:.4f} ms "
+            f"({row['us_a_block']:.2f} us a block, {row['tflops']:.2f} "
+            f"TFLOP/s), cuDNN form {library_ms:.4f} ms "
+            f"({library_ms / ms:.1f}x), bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({100 * row['bound_share']:.1f}% reached); max "
+            f"|err| / max |value| {err:.3g} against the cuDNN form, "
+            f"{err_plain:.3g} against the plain version; batch widths 1, 7 "
+            f"and {n}, moved blocks and two calls bit-equal [{card}]")
+    log(f"phase 23: {time.time() - t_phase:.1f} s")
+    return rows
 
 
 def main():
@@ -2988,8 +3163,12 @@ def run(device):
         f"({t_enc:.2f} s), decode {len(blocks) / t_dec:.2f} blocks/s "
         f"({t_dec:.2f} s); launches {counts_d1}")
     expect_launches("the d1 path", counts_d1,
-                    ("bucket_colsums", "halo_edt"),
+                    ("bucket_colsums", "halo_edt", "conv_one_out"),
                     ("bucket_colsums_d2", "edt_sweep"))
+    # the synthesis' last layer: one launch a chunk in the encoder's
+    # canonical decode and one in the decoder's
+    n_chunks = -(-len(blocks) // BATCH)
+    assert counts_d1["conv_one_out"] == 2 * n_chunks, counts_d1
 
     # phase 7: path A, D2 encode with normals on K3
     blobs, metadata, decoded, counts_a, t_enc, t_dec = drive(
@@ -3057,7 +3236,6 @@ def run(device):
     del tails, tails_bf16, seam
 
     # phase 10: path C, the fused-conv backend, f32
-    n_chunks = -(-len(blocks) // BATCH)
     # per chunk: (encode, decode) launches — three analysis and two
     # synthesis tails on K4a, the 64^3 x 16 synthesis tail on K4b
     k4_launches = {"fused_tail": (5, 2), "fused_tail_slab": (1, 1)}
@@ -3315,6 +3493,12 @@ def run(device):
         lambda lo, hi: codec.chunk_points(flat_dev, offsets, lo, hi, budget),
         blob_d1, decoded_d1, counts_d1, expect_launches)
 
+    # phase 23: conv_one_out on real activations of the first 128 blocks
+    torch.cuda.empty_cache()
+    one_out = check_conv_one_out(card, one_out_layers(
+        device, codec,
+        lambda lo, hi: codec.chunk_points(flat_dev, offsets, lo, hi, budget)))
+
     by_path = {"d1": counts_d1, "A": counts_a, "B": counts_b, "C": counts_c,
                "C_bf16": counts_cb, "c2": counts_v1["c2"],
                "c1": counts_v1["c1"], "host_fixed": counts_hf,
@@ -3353,6 +3537,12 @@ def run(device):
                      "path": path, "library_ms": None, **meta,
                      "launches_by_path": {k: v[name]
                                           for k, v in by_path.items()}})
+    rows.append({"name": "conv_one_out", "route": "cuda",
+                 "source": "pcc_geo_cnn_v2_tpu_torch/csrc/conv_one_out.cu",
+                 "replaces": None, "launches": counts_d1["conv_one_out"],
+                 "path": "d1", "shapes": one_out,
+                 "launches_by_path": {k: v.get("conv_one_out")
+                                      for k, v in by_path.items()}})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

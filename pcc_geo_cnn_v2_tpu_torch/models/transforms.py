@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pcc_geo_cnn_v2_tpu_torch.ops import conv_one_out
 from pcc_geo_cnn_v2_tpu_torch.utils import trace
 
 __all__ = ["Conv", "ConvTranspose", "subpixel_conv_transpose",
@@ -127,7 +128,10 @@ class ConvTranspose(nn.Module):
     correlation without the zeros. Forward convs keep cuDNN on fast
     deterministic algorithms (its deterministic transposed-conv algorithm
     is an order of magnitude slower at these shapes); at stride 1 it is a
-    single ``conv3d``.
+    single ``conv3d``. A layer into one output channel runs instead on
+    the hand-written ``conv_one_out`` where ``conv_one_out.routes`` says
+    so (f32 on the card, in a pass that records no graph): cuDNN fills one
+    column of its tile with it.
     """
 
     def __init__(self, cin, cout, kernel=3, stride=1, bias=True, dtype=None):
@@ -142,6 +146,11 @@ class ConvTranspose(nn.Module):
         k, s = self.k, self.s
         x, weight, bias = _cast(x, self.weight, self.bias,
                                 dtype or self.dtype)
+        if conv_one_out.routes(x, weight, s):
+            with (trace.span("transforms.conv_transpose") if s > 1
+                  else contextlib.nullcontext()):
+                return conv_one_out.conv_transpose_one_out(
+                    x, self._one_out_table(weight), bias, k, s)
         pad_a, pad_b = transpose_pads(k, s)
         if s == 1:
             xp = F.pad(x, (pad_a, pad_b) * 3)
@@ -155,6 +164,19 @@ class ConvTranspose(nn.Module):
               else trace.span("transforms.conv_transpose")):
             return _add_bias(subpixel_conv_transpose(x, weight, s, outs),
                              bias)
+
+    def _one_out_table(self, weight):
+        """``conv_one_out``'s packed table of ``weight``, packed once and
+        again after the weight was written or moved; complete on the card
+        when returned, as other threads' streams read it."""
+        key = (weight.data_ptr(), weight._version, str(weight.device))
+        hit = self.__dict__.get("_one_out")
+        if hit is None or hit[0] != key:
+            table = conv_one_out.pack_weights(weight, self.s)
+            if table.is_cuda:
+                torch.cuda.current_stream(table.device).synchronize()
+            self.__dict__["_one_out"] = hit = (key, table)
+        return hit[1]
 
 
 def subpixel_conv_transpose(x, weight, s, outs, shifts=(0, 0, 0)):

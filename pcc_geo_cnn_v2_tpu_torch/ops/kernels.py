@@ -61,6 +61,11 @@ KERNELS = {
     "fused_tail_slab": ("fused_tail_slab.cu", {
         "pcc_fused_tail_slab": [_P] * 6 + [_I] * 6 + [_P],
     }),
+    # no TPU kernel: the synthesis' last layer (ops/conv_one_out.py)
+    "conv_one_out": ("conv_one_out.cu", {
+        "pcc_conv_one_out": [_P] * 4 + [_I] * 11 + [_P],
+        "pcc_conv_one_out_geometry": [_I, _I, _I, _P],
+    }),
 }
 
 

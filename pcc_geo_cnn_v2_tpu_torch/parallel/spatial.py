@@ -33,8 +33,10 @@ their x_hat are bit-equal.
 
 The fused-tail kernels (``conv_backend="pallas"``) take whole volumes;
 this path runs the module weights through cuDNN forward convs whatever
-the model's backend. Stacks with ``residual_mode="concat"`` are refused:
-JAX's sp path adds ``h + t`` whatever the mode, which is wrong there.
+the model's backend (and a layer into one output channel through
+``conv_one_out``, as the unsharded model does). Stacks with
+``residual_mode="concat"`` are refused: JAX's sp path adds ``h + t``
+whatever the mode, which is wrong there.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ from pcc_geo_cnn_v2_tpu_torch.models.transforms import (
     subpixel_conv_transpose,
     transpose_pads,
 )
+from pcc_geo_cnn_v2_tpu_torch.ops import conv_one_out
 
 __all__ = ["conv3d_spatial_sharded", "conv3d_transpose_spatial_sharded",
            "encode_syms_spatial", "decode_y_spatial", "depth_slab",
@@ -169,6 +172,9 @@ def conv3d_transpose_spatial_sharded(x_local, weight, bias=None, *,
     is ``subpixel_conv_transpose``'s D shift (the port's sub-pixel form
     of the layer, never a conv of a dilated input). At stride 1 it is one
     forward conv over the halos, as in :class:`transforms.ConvTranspose`.
+    A layer into one output channel takes ``conv_one_out`` where
+    :class:`transforms.ConvTranspose` does (``conv_one_out.routes``), with
+    the same D shift: at world 1 its result is the unsharded layer's.
 
     :param x_local: ``[N, Cin, D/world, H, W]``; no halo deeper than a
         slab (ValueError).
@@ -183,12 +189,16 @@ def conv3d_transpose_spatial_sharded(x_local, weight, bias=None, *,
     halo_lo, halo_hi = pad_a // s, max((kd - 2 - pad_a) // s + 1, 0)
     _check_halos(halo_lo, halo_hi, d_local)
     x = _halo_exchange(x_local, halo_lo, halo_hi, group)
+    outs = (s * d_local, s * h, s * w)
+    if conv_one_out.routes(x, weight, s):
+        return conv_one_out.conv_transpose_one_out(
+            x, conv_one_out.pack_weights(weight, s), bias, kd, s, outs,
+            shift=halo_lo)
     if s == 1:
         kh, kw = weight.shape[3:]
         pads = (*transpose_pads(kw, 1), *transpose_pads(kh, 1), 0, 0)
         return F.conv3d(F.pad(x, pads), weight, bias)
-    y = subpixel_conv_transpose(x, weight, s, (s * d_local, s * h, s * w),
-                                shifts=(halo_lo, 0, 0))
+    y = subpixel_conv_transpose(x, weight, s, outs, shifts=(halo_lo, 0, 0))
     return y if bias is None else y + bias.view(1, -1, 1, 1, 1)
 
 
