@@ -3,9 +3,11 @@
 from __future__ import annotations
 
 import logging
+import os
 
 from pcc_geo_cnn_v2_tpu_torch.models.configs import MODEL_CONFIGS, build_model
 from pcc_geo_cnn_v2_tpu_torch.training import load_params as _load_params
+from pcc_geo_cnn_v2_tpu_torch.weights import merge_trees
 
 logger = logging.getLogger(__name__)
 
@@ -40,11 +42,15 @@ def build_model_from_args(args):
     return build_model(cfg)
 
 
-def load_params(checkpoint_dir):
+def load_params(checkpoint_dirs):
     """Weights for codec use. ``--checkpoint_dir`` names a ``.msgpack.gz``
     asset in the layout ``tools/export_rd_assets.py`` writes, or a port
     training directory (its latest ``ckpt_<step>``; orbax checkpoints of
-    the JAX package are not read)."""
-    tree = _load_params(checkpoint_dir)
-    logger.info("loaded weights %s", checkpoint_dir)
+    the JAX package are not read), or several of them, merged by
+    ``weights.merge_trees`` (a later one's modules over an earlier
+    one's)."""
+    if isinstance(checkpoint_dirs, (str, os.PathLike)):
+        checkpoint_dirs = [checkpoint_dirs]
+    tree = merge_trees(*[_load_params(d) for d in checkpoint_dirs])
+    logger.info("loaded weights %s", ", ".join(map(str, checkpoint_dirs)))
     return tree

@@ -14,6 +14,12 @@ rule.
         pcc_geo_cnn_v2_tpu/assets/bench_c3p.msgpack.gz --model_config c3p \
         --resolution 1024 --octree_level 4
 
+c3p_cw reads c3p's asset and its own, which adds and fine-tunes modules:
+
+    ... --model_config c3p_cw --checkpoint_dir \
+        pcc_geo_cnn_v2_tpu/assets/rd/c3p-a0.75/5.00e-05.msgpack.gz \
+        pcc_geo_cnn_v2_tpu_torch/assets/c3p_cw/5.00e-05.msgpack.gz
+
 With normals (a PLY holding nx, ny, nz per point) and one d1 plus one d2
 opt metric, one output per metric:
 
@@ -81,9 +87,11 @@ def main(argv=None):
                              "d2 opt metrics.")
     parser.add_argument("--dec_files", nargs="*",
                         help="Write merged-decode PLYs at encode time.")
-    parser.add_argument("--checkpoint_dir", required=True,
+    parser.add_argument("--checkpoint_dir", nargs="+", required=True,
                         help="A .msgpack.gz weight asset or a training "
-                             "directory (its latest ckpt_<step>).")
+                             "directory (its latest ckpt_<step>); several "
+                             "are merged, later modules over earlier ones "
+                             "(c3p_cw: c3p's asset, then its own).")
     add_model_args(parser)
     parser.add_argument("--opt_metrics", nargs="+", default=["d1_mse"])
     parser.add_argument("--max_deltas", nargs="+", default=[np.inf],

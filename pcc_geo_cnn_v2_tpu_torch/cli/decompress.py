@@ -53,9 +53,11 @@ def main(argv=None):
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     parser.add_argument("--input_files", nargs="+", required=True)
     parser.add_argument("--output_files", nargs="+", required=True)
-    parser.add_argument("--checkpoint_dir", required=True,
+    parser.add_argument("--checkpoint_dir", nargs="+", required=True,
                         help="A .msgpack.gz weight asset or a training "
-                             "directory (its latest ckpt_<step>).")
+                             "directory (its latest ckpt_<step>); several "
+                             "are merged, later modules over earlier ones "
+                             "(c3p_cw: c3p's asset, then its own).")
     add_model_args(parser)
     parser.add_argument("--batch_blocks", type=int, default=32)
     parser.add_argument("--debug", action="store_true",

@@ -6,11 +6,12 @@ with input normals the d2 group), the host-threshold encoder
 (:meth:`BlockCodec.compress_blocks`: KD-tree metrics per block on a thread
 pool, or ``fixed_threshold``) and the decoder
 (:meth:`BlockCodec.decompress_blocks`), for v2 (hyperprior: c2, c3, c3p)
-and v1 (factorized prior: c1) models. The ``--debug`` harness of the CLIs
-adds :meth:`BlockCodec.encode_blocks` (the models' fused ``encode``),
-:meth:`BlockCodec.entropy_encode` (one block's strings) and
-``decompress_blocks(return_debug=True)`` (the decoder's symbols and
-packed masks).
+and v1 (factorized prior: c1) models, and for c3p_cw (c3p with the
+channel-wise context model, ``CompressionModelCW``). The ``--debug``
+harness of the CLIs adds :meth:`BlockCodec.encode_blocks` (the models'
+fused ``encode``), :meth:`BlockCodec.entropy_encode` (one block's
+strings) and ``decompress_blocks(return_debug=True)`` (the decoder's
+symbols and packed masks).
 
 Encode, per chunk of ``batch_blocks`` blocks: voxelize → analysis pass
 (symbols only) → the decoder-canonical ``decode_z`` / ``decode_y`` (v1:
@@ -54,6 +55,18 @@ With ``conv_backend="pallas"`` the residual tails run on the hand-written
 kernels K4a / K4b, which sum every voxel in one fixed order whatever the
 batch; the strided convs around them stay cuDNN under the same flags.
 
+The channel-wise model codes y in slices, each under a mean and a scale
+that depend on the slices decoded before it. The encoder's canonical pass
+runs that chain on the device (``CompressionModelCW.encode_syms``, the
+decoder's own per-slice functions at the same batch width), and its y
+string holds the slices in turn (y in NCDHW order, one string a block).
+The decoder then alternates, per slice: μ and the σ rows on the device,
+the rows to the host, the range decode of that slice of every block of
+the chunk (``range_coder.BatchDecoder``, which keeps each string's coder
+state between slices), the symbols back to the device for ŷ. One ulp of
+μ apart, encoder and decoder would code different symbols, so the chain
+obeys the contract below as x_hat does.
+
 Blocks whose candidate count overflows the sweep's budget
 (``bucket_k``) are re-swept through the same kernel at ``K = B³``, where
 overflow cannot happen, on the kept canonical x_hat rows — never
@@ -88,7 +101,10 @@ import numpy as np
 import torch
 
 from pcc_geo_cnn_v2_tpu_torch.coding import range_coder as rc
-from pcc_geo_cnn_v2_tpu_torch.models.codec_models import CompressionModelV2
+from pcc_geo_cnn_v2_tpu_torch.models.codec_models import (
+    CompressionModelCW,
+    CompressionModelV2,
+)
 from pcc_geo_cnn_v2_tpu_torch.models.entropy import (
     build_factorized_cdf,
     build_gaussian_cdf,
@@ -260,6 +276,7 @@ class BlockCodec:
         self.sweep_backend = sweep_backend
         self.model = model.to(self.device).eval()
         self.is_v2 = isinstance(model, CompressionModelV2)
+        self.is_cw = isinstance(model, CompressionModelCW)
         self.block_size = int(block_size)
         self.thresholds = np.linspace(0, 1.0, n_thresholds)
         self.thr_dev = torch.tensor(self.thresholds, dtype=torch.float32,
@@ -357,6 +374,12 @@ class BlockCodec:
         mask = x_hat[..., 0] > thr[:, None, None, None]
         return packbits(mask.reshape(mask.shape[0], -1))
 
+    def _y_order(self, a):
+        """y arrays ([..., b, b, b, C]) in the order the y string holds
+        them: NDHWC, and for the channel-wise model NCDHW, so that each
+        slice is one run of the string."""
+        return np.moveaxis(a, -1, -4) if self.is_cw else a
+
     def entropy_encode_all(self, out):
         """Range-code every block's symbols → list of (y, z) strings (v1:
         (y,), coded with the factorized prior per channel)."""
@@ -365,7 +388,8 @@ class BlockCodec:
                                 self._channel_indexes(self.y_shape),
                                 self.eb_table)
             return [(s,) for s in y]
-        y = rc.encode_batch(out["y_sym"], out["y_idx"], self.gc_table)
+        y = rc.encode_batch(self._y_order(out["y_sym"]),
+                            self._y_order(out["y_idx"]), self.gc_table)
         z = rc.encode_batch(out["z_sym"],
                             self._channel_indexes(self.z_shape),
                             self.eb_table)
@@ -379,7 +403,8 @@ class BlockCodec:
             return (rc.encode(out["y_sym"][i],
                               self._channel_indexes(self.y_shape),
                               self.eb_table),)
-        return (rc.encode(out["y_sym"][i], out["y_idx"][i], self.gc_table),
+        return (rc.encode(self._y_order(out["y_sym"][i]),
+                          self._y_order(out["y_idx"][i]), self.gc_table),
                 rc.encode(out["z_sym"][i],
                           self._channel_indexes(self.z_shape),
                           self.eb_table))
@@ -483,14 +508,20 @@ class BlockCodec:
             raise ValueError("block(s) contain duplicate voxel coordinates; "
                              "dedup inputs (see cli/compress.py)")
         deterministic_convs()
-        res = (lane or self._lanes[0]).model.encode_syms(x)
-        # canonical decoder feed: padding rows are zero symbols, as the
-        # decoder pads them
-        for key in res:
-            res[key][n_valid:] = 0
-        if self.is_v2:
-            res["y_idx"] = self._decode_z(res["z_sym"], lane)
-        res["x_hat"] = self._decode_y(res["y_sym"], lane)
+        model = (lane or self._lanes[0]).model
+        if self.is_cw:
+            # the slice chain, padding rows' symbols zero as the decoder's
+            res = model.encode_syms(x, n_valid)
+            res["x_hat"] = model.decode_y(res.pop("y_hat"))
+        else:
+            res = model.encode_syms(x)
+            # canonical decoder feed: padding rows are zero symbols, as
+            # the decoder pads them
+            for key in res:
+                res[key][n_valid:] = 0
+            if self.is_v2:
+                res["y_idx"] = self._decode_z(res["z_sym"], lane)
+            res["x_hat"] = self._decode_y(res["y_sym"], lane)
         res["x"] = x
         return res
 
@@ -820,6 +851,8 @@ class BlockCodec:
         n = len(payload)
         bs = self.batch_blocks
         thr = np.array([self.thresholds[t] for _, t in payload], np.float32)
+        if self.is_cw:
+            return self._decompress_cw(payload, thr, return_debug)
         t_z = t_dz = 0.0  # v1: no z string, no decode_z
         with trace.span("codec.decode"):
             if self.is_v2:
@@ -862,3 +895,78 @@ class BlockCodec:
         if self.is_v2:
             debug.update(z_sym=z_syms, y_idx=y_idx)
         return blocks, debug
+
+    def _decompress_cw(self, payload, thr, return_debug):
+        """:meth:`decompress_blocks` of the channel-wise model: z, then
+        per slice and chunk (chunk k on lane k mod lanes) μ and the σ rows
+        on the device, the rows to the host, the range decode of the
+        chunk's blocks' slice (one resumable decoder over the cloud's y
+        strings), ŷ on the device; last the synthesis of every chunk."""
+        n, bs = len(payload), self.batch_blocks
+        chunks = self._chunks(n)
+        lanes = [self._lanes[k % len(self._lanes)]
+                 for k in range(len(chunks))]
+        slices = self.model.num_slices
+        with trace.span("codec.decode"):
+            with trace.span("codec.z_rans") as z_rans:
+                z_syms = rc.decode_batch(
+                    [p[0][1] for p in payload],
+                    self._channel_indexes(self.z_shape), self.eb_table,
+                    per_stream=False)
+            with trace.span("codec.decode_z") as decode_z:
+                deterministic_convs()
+                hypers = [lane.model.decode_hyper(
+                    self._pad_rows(z_syms[lo:hi], bs, lane))
+                    for lane, (lo, hi) in zip(lanes, chunks)]
+            dec = rc.BatchDecoder([p[0][0] for p in payload], self.gc_table)
+            y_hats = [[] for _ in chunks]
+            syms = [[] for _ in chunks]
+            idxs = [[] for _ in chunks]
+            t_params = t_rans = t_lrp = 0.0
+            for k in range(slices):
+                with trace.span("codec.slice_params") as params:
+                    # every chunk's μ and rows dispatched before any fetch
+                    sent = [lane.model.slice_params(hyper, y_hat, k)
+                            for lane, hyper, y_hat in zip(lanes, hypers,
+                                                          y_hats)]
+                t_params += params.seconds
+                for c, (lane, (lo, hi)) in enumerate(zip(lanes, chunks)):
+                    mu, idx = sent[c]
+                    with trace.span("codec.slice_params") as params:
+                        idx = idx[:hi - lo].cpu().numpy()
+                    with trace.span("codec.slice_rans") as rans:
+                        sym = dec.decode(idx.reshape(hi - lo, -1), lo,
+                                         hi).reshape(idx.shape)
+                    with trace.span("codec.slice_lrp") as lrp:
+                        y_hats[c].append(lane.model.slice_lrp(
+                            hypers[c], y_hats[c], k, mu,
+                            self._pad_rows(sym, bs, lane)))
+                    t_params += params.seconds
+                    t_rans += rans.seconds
+                    t_lrp += lrp.seconds
+                    syms[c].append(sym)
+                    idxs[c].append(idx)
+                trace.count("slices.decoded", len(chunks))
+            with trace.span("codec.decode_y") as decode_y:
+                masks = [self._masks(
+                    lane.model.decode_y(torch.cat(y_hat, 1)),
+                    self._pad_rows(thr[lo:hi], bs, lane))[:hi - lo]
+                    for lane, y_hat, (lo, hi) in zip(lanes, y_hats, chunks)]
+                masks = [m.cpu().numpy() for m in masks]
+            with trace.span("codec.unpack") as unpack:
+                masks = np.concatenate(masks)
+                blocks = unpack_mask_coords(masks, self.block_size)
+        logger.info("decompress_blocks_cw(%d blocks): z rANS %.3fs, "
+                    "decode_z %.3fs, slice params %.3fs, slice rANS %.3fs, "
+                    "slice lrp %.3fs, decode_y+masks %.3fs, unpack %.3fs",
+                    n, z_rans.seconds, decode_z.seconds, t_params, t_rans,
+                    t_lrp, decode_y.seconds, unpack.seconds)
+        if not return_debug:
+            return blocks
+
+        def ndhwc(parts):
+            return np.moveaxis(np.concatenate(
+                [np.concatenate(p, 1) for p in parts]), 1, -1)
+
+        return blocks, {"y_sym": ndhwc(syms), "packed_masks": masks,
+                        "z_sym": z_syms, "y_idx": ndhwc(idxs)}

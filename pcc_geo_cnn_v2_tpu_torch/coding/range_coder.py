@@ -9,6 +9,10 @@ to the JAX package's for identical symbols and tables.
 
 The codec codes whole clouds with the batch calls (:func:`encode_batch`,
 :func:`decode_batch`); :func:`encode` / :func:`decode` code one block.
+:class:`BatchDecoder` decodes the streams of one batch in consecutive
+parts, keeping each stream's coder state between calls: a decoder whose
+rows for the next part depend on the symbols of the last (the channel-wise
+context model's slices) reads one string a block.
 :func:`encode_py` / :func:`decode_py` are the executable specification the
 tests hold the library against; nothing else calls them.
 """
@@ -23,7 +27,7 @@ from pcc_geo_cnn_v2_tpu_torch.models.entropy import CdfTable
 from pcc_geo_cnn_v2_tpu_torch.native import load_host_lib
 
 __all__ = ["encode", "decode", "encode_batch", "decode_batch",
-           "encode_py", "decode_py"]
+           "BatchDecoder", "encode_py", "decode_py"]
 
 _OVERFLOW_WIDTH = 4
 _RANS_L = 1 << 31
@@ -51,6 +55,14 @@ def _lib():
         lib.pcc_rc_decode_lut_batch.argtypes = [
             u8p, i64p, i32p, c32, c64, c64, i32p, c64, i32p, i32p, c32, c32,
             u16p, i32p]
+        u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+        lib.pcc_rc_decode_resume_begin.restype = c64
+        lib.pcc_rc_decode_resume_begin.argtypes = [u8p, i64p, c64, u64p,
+                                                   i64p]
+        lib.pcc_rc_decode_lut_resume.restype = c64
+        lib.pcc_rc_decode_lut_resume.argtypes = [
+            u8p, i64p, u64p, i64p, i32p, c32, c64, c64, i32p, c64, i32p,
+            i32p, c32, c32, u16p, i32p]
         lib._pcc_typed = True
     return lib
 
@@ -176,6 +188,54 @@ def decode_batch(datas, indexes, table: CdfTable, per_stream,
     if rc != 0:
         raise ValueError("malformed range-coded stream")
     return out.reshape((n,) + tuple(row_shape))
+
+
+class BatchDecoder:
+    """Resumable inverse of :func:`encode_batch`: ``n`` streams decoded in
+    consecutive parts. Each :meth:`decode` call takes the next symbols of
+    a run of streams, against rows that may depend on the parts decoded
+    before; the parts of a stream, decoded in turn, are the symbols that
+    :func:`decode_batch` gives for the whole stream. Each stream's coder
+    state (its rANS state and next word) lives here between calls."""
+
+    def __init__(self, datas, table: CdfTable,
+                 overflow_width=_OVERFLOW_WIDTH):
+        self.n = len(datas)
+        self.table, self.overflow_width = table, overflow_width
+        self.offsets = np.zeros(self.n + 1, np.int64)
+        np.cumsum([len(d) for d in datas], out=self.offsets[1:])
+        buf = np.frombuffer(b"".join(datas), np.uint8)
+        # a valid pointer for ctypes when every stream is empty
+        self.buf = buf if buf.size else np.zeros(1, np.uint8)
+        self.x = np.zeros(self.n, np.uint64)
+        self.pos = np.zeros(self.n, np.int64)
+        if _lib().pcc_rc_decode_resume_begin(
+                self.buf, self.offsets, self.n, self.x, self.pos) != 0:
+            raise ValueError("malformed range-coded stream")
+
+    def decode(self, indexes, lo=0, hi=None) -> np.ndarray:
+        """The next symbols of streams ``lo`` … ``hi - 1`` (all when
+        ``hi`` is None), one row of ``indexes`` ([hi - lo, *row]) a
+        stream: int32 shaped like ``indexes``."""
+        hi = self.n if hi is None else hi
+        if not 0 <= lo <= hi <= self.n:
+            raise ValueError(f"streams {lo}:{hi} of {self.n}")
+        indexes = np.ascontiguousarray(indexes, np.int32)
+        if len(indexes) != hi - lo:
+            raise ValueError(f"{len(indexes)} index rows for {hi - lo} "
+                             "streams")
+        out = np.empty(indexes.shape, np.int32)
+        if hi == lo:
+            return out
+        cdf, cdf_len, offset = _as_c(self.table)
+        rc = _lib().pcc_rc_decode_lut_resume(
+            self.buf, self.offsets[lo:], self.x[lo:hi], self.pos[lo:hi],
+            indexes.reshape(-1), 0, hi - lo, indexes[0].size, cdf,
+            cdf.shape[1], cdf_len, offset, self.table.precision,
+            self.overflow_width, _get_lut(self.table), out.reshape(-1))
+        if rc != 0:
+            raise ValueError("malformed range-coded stream")
+        return out
 
 
 # -- pure-Python twin (the specification; tests only) ----------------------

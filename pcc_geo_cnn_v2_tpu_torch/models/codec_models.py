@@ -12,6 +12,14 @@ tensors keep the JAX package's NDHWC layouts — x ``[N, B, B, B, 1]``,
 latents and symbols ``[N, b, b, b, C]``, x_hat ``[N, B, B, B, 1]`` f32 —
 and are converted to NCDHW once per call. Quantization is f32.
 
+``CompressionModelCW`` is c3p's hyperprior model with Minnen & Singh's
+channel-wise autoregressive entropy model (arXiv:2007.08739, the
+reference code's ``models/ms2020.py``) in place of the zero-mean
+Gaussian: y is coded in slices, each under a mean and a scale predicted
+from the hyper synthesis and the slices decoded before it, and corrected
+by a latent residual prediction. It is the one model whose decoder waits
+on the host between device passes (``BlockCodec.decompress_blocks``).
+
 The training noise is an argument: U(-0.5, 0.5) tensors of y's (and z's)
 NDHWC shape. The training graph always runs the module convs, as the JAX
 one always runs flax's: the fused-tail kernels K4a / K4b have no backward.
@@ -27,13 +35,18 @@ from pcc_geo_cnn_v2_tpu_torch.models.entropy import (
     GaussianConditional,
     default_scale_table,
 )
-from pcc_geo_cnn_v2_tpu_torch.models.transforms import TRANSFORMS, BlockStack
+from pcc_geo_cnn_v2_tpu_torch.models.transforms import (
+    TRANSFORMS,
+    BlockStack,
+    SliceTransform,
+)
 from pcc_geo_cnn_v2_tpu_torch.ops.fused_conv import (
     fused_block_stack_apply,
     packed_tails,
 )
 
-__all__ = ["CompressionModelV1", "CompressionModelV2", "CONV_BACKENDS"]
+__all__ = ["CompressionModelV1", "CompressionModelV2", "CompressionModelCW",
+           "CONV_BACKENDS"]
 
 CONV_BACKENDS = ("xla", "pallas")
 
@@ -193,3 +206,182 @@ class CompressionModelV2(nn.Module):
         y_hat = self.conditional.dequantize_symbols(y_sym)
         x_hat = _to_ndhwc(self._stack(self.synthesis_t, y_hat)).float()
         return torch.clamp(x_hat, 0.0, 1.0)
+
+
+def _round_st(x):
+    """round(x) forward, identity backward (``tfc.round_st``)."""
+    return x + (torch.round(x) - x).detach()
+
+
+class CompressionModelCW(CompressionModelV2):
+    """c3p's autoencoder, hyper analysis and z prior with the channel-wise
+    autoregressive mean-scale entropy model of Minnen & Singh (2020).
+
+    Two hyper synthesis transforms make ``latent_means`` and
+    ``latent_scales`` from ẑ (the latter is the inherited
+    ``hyper_synthesis_t``). y is split along channels into
+    ``num_slices`` slices; for slice k the support is the first
+    ``min(k, max_support)`` decoded slices ŷ_0, ŷ_1, … (the first, not
+    the latest, as ``ms2020.py`` selects them) and
+
+    - μ_k = ``slice_mean_k``(latent_means, support),
+    - σ_k = ``slice_scale_k``(latent_scales, support),
+    - symbols round(y_k − μ_k), coded under N(0, σ_k) by their scale-table
+      row,
+    - ŷ_k = symbols + μ_k + ½ tanh(``slice_lrp_k``(latent_means, support,
+      symbols + μ_k)) (latent residual prediction),
+
+    each net a :class:`SliceTransform`. ŷ feeds the synthesis. Inside the
+    slice chain tensors are NCDHW (a slice is a channel range); the
+    public ones stay NDHWC. Departures from ``ms2020.py``: 3-D k3 convs,
+    and the hyper synthesis ends in a ReLU as c3p's does (ms2020's mean
+    branch is linear at its end; the slice nets after it are not).
+    """
+
+    # the modules this model adds to c3p's (``hyper_synthesis_t``, the
+    # scale branch, starts from c3p's and is trained with them)
+    ADDED_PREFIXES = ("hyper_synthesis_t", "hyper_synthesis_mean_t",
+                      "slice_")
+
+    def __init__(self, num_filters=64, num_slices=8, max_support=4,
+                 slice_widths=(48, 32),
+                 hyper_synthesis="HyperSynthesisTransform", dtype=None,
+                 **kw):
+        super().__init__(num_filters, hyper_synthesis=hyper_synthesis,
+                         dtype=dtype, **kw)
+        if num_filters % num_slices:
+            raise ValueError(f"{num_slices} slices do not divide "
+                             f"{num_filters} channels")
+        self.num_slices, self.max_support = num_slices, max_support
+        self.slice_channels = cs = num_filters // num_slices
+        self.hyper_synthesis_mean_t = TRANSFORMS[hyper_synthesis](
+            num_filters, dtype=dtype)
+        for k in range(num_slices):
+            cin = num_filters + cs * min(k, max_support)
+            setattr(self, f"slice_mean_{k}",
+                    SliceTransform(cin, cs, slice_widths, dtype))
+            setattr(self, f"slice_scale_{k}",
+                    SliceTransform(cin, cs, slice_widths, dtype))
+            setattr(self, f"slice_lrp_{k}",
+                    SliceTransform(cin + cs, cs, slice_widths, dtype))
+
+    # -- the slice chain (shared by training, encoder and decoder) --------
+
+    def support(self, y_hats, k):
+        """The decoded slices that slice ``k`` is conditioned on: the first
+        ``min(k, max_support)``."""
+        return y_hats[:min(k, self.max_support)]
+
+    def _mean_scale(self, hyper, y_hats, k):
+        """(μ_k, σ_k before its bound), NCDHW."""
+        means, scales = hyper
+        sup = self.support(y_hats, k)
+        mu = getattr(self, f"slice_mean_{k}")(torch.cat([means] + sup, 1))
+        sigma = getattr(self, f"slice_scale_{k}")(
+            torch.cat([scales] + sup, 1))
+        return mu, sigma
+
+    def _lrp(self, hyper, y_hats, k, y_q):
+        """ŷ_k from the quantized slice ``y_q`` = symbols + μ_k."""
+        sup = self.support(y_hats, k)
+        r = getattr(self, f"slice_lrp_{k}")(
+            torch.cat([hyper[0]] + sup + [y_q], 1))
+        return y_q + 0.5 * torch.tanh(r)
+
+    @torch.no_grad()
+    def decode_hyper(self, z_sym):
+        """ẑ symbols (NDHWC) → (latent_means, latent_scales), NCDHW f32."""
+        z_hat = _to_ncdhw(self.entropy_bottleneck.dequantize_symbols(z_sym))
+        return (self.hyper_synthesis_mean_t(z_hat).float(),
+                self.hyper_synthesis_t(z_hat).float())
+
+    @torch.no_grad()
+    def slice_params(self, hyper, y_hats, k):
+        """(μ_k, per-element scale-table rows of σ_k as uint8), NCDHW: the
+        decoder's device half before slice k's range decode."""
+        mu, sigma = self._mean_scale(hyper, y_hats, k)
+        idx = self.conditional.indexes(self.conditional.bound_scale(sigma))
+        return mu, idx.to(torch.uint8)
+
+    @torch.no_grad()
+    def slice_lrp(self, hyper, y_hats, k, mu, sym):
+        """ŷ_k (NCDHW f32) from slice k's symbols: its device half after
+        the range decode."""
+        return self._lrp(hyper, y_hats, k,
+                         self.conditional.dequantize_symbols(sym, loc=mu))
+
+    # -- training graph ---------------------------------------------------
+
+    def forward(self, x, training=True, noise_z=None, noise_y=None):
+        """x [N,B,B,B,1] → the dict of :meth:`CompressionModelV2.forward`
+        (``sigma_tilde`` excepted), NDHWC. The rate takes y_k − μ_k plus
+        the noise (training) or rounded; ẑ (to the hyper synthesis) and
+        ŷ_k (to the support, the LRP and the synthesis) take
+        straight-through rounding, as ``ms2020.py``."""
+        y = self.analysis_t(_to_ncdhw(x))
+        z = _to_ndhwc(self.hyper_analysis_t(y))
+        z_tilde, z_lik = self.entropy_bottleneck(z, training, noise_z)
+        med = self.entropy_bottleneck.medians()
+        z_hat = _to_ncdhw(_round_st(z - med) + med)
+        hyper = (self.hyper_synthesis_mean_t(z_hat),
+                 self.hyper_synthesis_t(z_hat))
+        cs = self.slice_channels
+        noise = None if noise_y is None else _to_ncdhw(noise_y).split(cs, 1)
+        if training and noise is None:
+            raise ValueError("training quantization needs the noise")
+        y_hats, liks = [], []
+        for k, y_k in enumerate(y.split(cs, 1)):
+            mu, sigma = self._mean_scale(hyper, y_hats, k)
+            y_q = _round_st(y_k - mu) + mu
+            liks.append(self.conditional.likelihood(
+                y_k + noise[k] if training else y_q, sigma, loc=mu))
+            y_hats.append(self._lrp(hyper, y_hats, k, y_q))
+        y_hat = torch.cat(y_hats, 1)
+        x_tilde = _to_ndhwc(self.synthesis_t(y_hat))
+        return {"y": _to_ndhwc(y), "z": z, "z_tilde": z_tilde,
+                "z_likelihoods": z_lik, "y_tilde": _to_ndhwc(y_hat),
+                "y_likelihoods": _to_ndhwc(torch.cat(liks, 1)),
+                "x_tilde": x_tilde}
+
+    # -- inference ----------------------------------------------------------
+
+    @torch.no_grad()
+    def encode_syms(self, x, n_valid=None):
+        """x [N,B,B,B,1] → dict(z_sym, y_sym int32 and y_idx uint8 NDHWC,
+        y_hat NCDHW f32): the slice chain as the decoder runs it, slice by
+        slice through :meth:`slice_params` and :meth:`slice_lrp`. Rows from
+        ``n_valid`` on are padding: their z and y symbols are zero, as the
+        decoder pads them."""
+        n = len(x) if n_valid is None else n_valid
+        y = self._stack(self.analysis_t, x)
+        z = _to_ndhwc(self.hyper_analysis_t(y)).float()
+        z_sym = self.entropy_bottleneck.quantize_symbols(z)
+        z_sym[n:] = 0
+        hyper = self.decode_hyper(z_sym)
+        y_hats, syms, idxs = [], [], []
+        for k, y_k in enumerate(y.float().split(self.slice_channels, 1)):
+            mu, idx = self.slice_params(hyper, y_hats, k)
+            sym = self.conditional.quantize_symbols(y_k, loc=mu)
+            sym[n:] = 0
+            y_hats.append(self.slice_lrp(hyper, y_hats, k, mu, sym))
+            syms.append(sym)
+            idxs.append(idx)
+        return {"z_sym": z_sym, "y_sym": _to_ndhwc(torch.cat(syms, 1)),
+                "y_idx": _to_ndhwc(torch.cat(idxs, 1)),
+                "y_hat": torch.cat(y_hats, 1)}
+
+    @torch.no_grad()
+    def encode(self, x):
+        """x [N,B,B,B,1] → dict(z_sym, y_sym, y_idx, x_hat), as
+        :meth:`CompressionModelV2.encode`."""
+        out = self.encode_syms(x)
+        out["y_idx"] = out["y_idx"].to(torch.int32)
+        out["x_hat"] = self.decode_y(out.pop("y_hat"))
+        return out
+
+    @torch.no_grad()
+    def decode_y(self, y_hat):
+        """ŷ (NCDHW f32, the slices' concatenation) → x_hat [N,B,B,B,1] f32
+        in [0, 1]."""
+        x_hat = _to_ndhwc(self._stack(self.synthesis_t, _to_ndhwc(y_hat)))
+        return torch.clamp(x_hat.float(), 0.0, 1.0)

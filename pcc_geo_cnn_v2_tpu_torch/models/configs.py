@@ -4,6 +4,10 @@
 - c2  — v2 (hyperprior), V1 transforms, 32 filters
 - c3  — v2, residual V2 transforms, 32 filters
 - c3p — v2, progressive V2 transforms, 64 filters (the flagship)
+- c3p_cw — c3p with Minnen & Singh's channel-wise autoregressive
+  mean-scale entropy model: 8 slices of 8 channels, support of the first
+  4, latent residual prediction (``CompressionModelCW``); the port's own,
+  no JAX counterpart
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 from torch import nn
 
 from pcc_geo_cnn_v2_tpu_torch.models.codec_models import (
+    CompressionModelCW,
     CompressionModelV1,
     CompressionModelV2,
 )
@@ -42,6 +47,15 @@ MODEL_CONFIGS: dict[str, dict] = {
         analysis="AnalysisTransformProgressiveV2",
         synthesis="SynthesisTransformProgressiveV2",
     ),
+    "c3p_cw": dict(
+        model="cw",
+        num_filters=64,
+        analysis="AnalysisTransformProgressiveV2",
+        synthesis="SynthesisTransformProgressiveV2",
+        num_slices=8,
+        max_support=4,
+        slice_widths=(48, 32),
+    ),
 }
 
 
@@ -63,5 +77,8 @@ def build_model(config, dtype=None, conv_backend="xla") -> nn.Module:
         return CompressionModelV1(dtype=dtype, **cfg)
     if kind == "v2":
         return CompressionModelV2(dtype=dtype, conv_backend=conv_backend,
+                                  **cfg)
+    if kind == "cw":
+        return CompressionModelCW(dtype=dtype, conv_backend=conv_backend,
                                   **cfg)
     raise ValueError(f"unknown model kind {kind!r}")

@@ -174,7 +174,11 @@ def _std_cumulative(x):
 
 @dataclasses.dataclass(frozen=True)
 class GaussianConditional:
-    """Zero-mean Gaussian entropy model with a fixed scale table."""
+    """Gaussian entropy model with a fixed scale table, zero-mean unless a
+    location ``loc`` (μ, broadcast like ``y``) is given: the likelihood is
+    then that of y − μ, the symbols are round(y − μ) and they dequantize
+    to symbols + μ (the mean-scale model of the channel-wise context
+    model, ``CompressionModelCW``)."""
 
     scale_table: np.ndarray = dataclasses.field(
         default_factory=default_scale_table)
@@ -184,10 +188,11 @@ class GaussianConditional:
         """Inference: the forward of :func:`lower_bound`."""
         return torch.clamp_min(sigma, float(self.scale_table[0]))
 
-    def likelihood(self, y, sigma):
-        """P(round(y) bin) under N(0, sigma²), with noise-compatible bins."""
+    def likelihood(self, y, sigma, loc=None):
+        """P(round(y − loc) bin) under N(0, sigma²), with noise-compatible
+        bins."""
         sigma = lower_bound(sigma, float(self.scale_table[0]))
-        v = torch.abs(y)
+        v = torch.abs(y if loc is None else y - loc)
         upper = _std_cumulative((0.5 - v) / sigma)
         lower = _std_cumulative((-0.5 - v) / sigma)
         return lower_bound(upper - lower, LIKELIHOOD_BOUND)
@@ -209,11 +214,12 @@ class GaussianConditional:
                                 device=sigma.device)
         return torch.sum(sigma[..., None] > table, dim=-1).to(torch.int32)
 
-    def quantize_symbols(self, y):
-        return torch.round(y).to(torch.int32)
+    def quantize_symbols(self, y, loc=None):
+        return torch.round(y if loc is None else y - loc).to(torch.int32)
 
-    def dequantize_symbols(self, symbols):
-        return symbols.to(torch.float32)
+    def dequantize_symbols(self, symbols, loc=None):
+        y = symbols.to(torch.float32)
+        return y if loc is None else y + loc
 
 
 # ---------------------------------------------------------------------------

@@ -47,7 +47,7 @@ __all__ = ["Conv", "ConvTranspose", "subpixel_conv_transpose",
            "SynthesisBlock", "BlockStack", "AnalysisTransformV2",
            "SynthesisTransformV2", "AnalysisTransformProgressiveV2",
            "SynthesisTransformProgressiveV2", "HyperAnalysisTransform",
-           "HyperSynthesisTransform", "TRANSFORMS"]
+           "HyperSynthesisTransform", "SliceTransform", "TRANSFORMS"]
 
 RESIDUAL_MODES = ("add", "concat")
 
@@ -383,6 +383,24 @@ class HyperSynthesisTransform(nn.Module):
         x = F.relu(self.ConvTranspose_0(x))
         x = F.relu(self.ConvTranspose_1(x))
         return F.relu(self.ConvTranspose_2(x))
+
+
+class SliceTransform(nn.Module):
+    """One net of the channel-wise context model (Minnen & Singh 2020):
+    conv k3 → ``widths[0]``, ReLU; conv k3 → ``widths[1]``, ReLU; conv k3
+    → ``cout``, linear. Stride 1: it maps a latent-sized input to one
+    slice's μ, σ or latent residual."""
+
+    def __init__(self, cin, cout, widths=(48, 32), dtype=None):
+        super().__init__()
+        self.Conv_0 = Conv(cin, widths[0], 3, dtype=dtype)
+        self.Conv_1 = Conv(widths[0], widths[1], 3, dtype=dtype)
+        self.Conv_2 = Conv(widths[1], cout, 3, dtype=dtype)
+
+    def forward(self, x):
+        x = F.relu(self.Conv_0(x))
+        x = F.relu(self.Conv_1(x))
+        return self.Conv_2(x)
 
 
 TRANSFORMS = {

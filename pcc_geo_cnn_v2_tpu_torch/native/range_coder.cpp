@@ -49,7 +49,7 @@ inline void rans_enc(uint64_t& x, std::vector<uint32_t>& words,
 
 struct RansDec {
   uint64_t x;
-  const uint32_t* words;
+  const uint8_t* words;  // the stream's 32-bit words, little endian
   int64_t n_words;
   int64_t pos;  // next word to read
 
@@ -60,7 +60,9 @@ struct RansDec {
     x = freq * (x >> bits) + peek(bits) - start;
     while (x < kRansL) {
       if (pos >= n_words) return false;
-      x = (x << 32) | words[pos++];
+      uint32_t w;
+      std::memcpy(&w, words + 4 * pos++, 4);
+      x = (x << 32) | w;
     }
     return true;
   }
@@ -190,33 +192,22 @@ int64_t pcc_rc_encode_batch(const int32_t* symbols, const int32_t* indexes,
 
 namespace {
 
-// Returns 0 on success, -1 on malformed stream. When ``lut`` is
+// Decode the next n symbols of one stream from ``dec``'s state.
+// Returns 0 on success, -1 on a malformed stream. When ``lut`` is
 // non-null it maps (row, slot) -> bucket directly (slot->bucket lookup
 // table of stride 2^precision, built host-side from the same CDF), so
 // the per-symbol CDF binary search (~9 cache-missing probes) becomes
 // one load — ~3x decode throughput on the y-symbol streams.
-static int64_t rc_decode_impl(const uint8_t* in, int64_t in_len,
-                              const int32_t* indexes, int64_t n,
-                              const int32_t* cdf, int64_t cdf_stride,
-                              const int32_t* cdf_length,
-                              const int32_t* offset, int32_t precision,
-                              int32_t overflow_width,
-                              const uint16_t* lut, int32_t* symbols_out) {
-  if (in_len < 8 || (in_len - 8) % 4 != 0) return -1;
+static int64_t rc_decode_symbols(RansDec& dec, const int32_t* indexes,
+                                 int64_t n, const int32_t* cdf,
+                                 int64_t cdf_stride,
+                                 const int32_t* cdf_length,
+                                 const int32_t* offset, int32_t precision,
+                                 int32_t overflow_width,
+                                 const uint16_t* lut, int32_t* symbols_out) {
   const uint32_t w = static_cast<uint32_t>(overflow_width);
   const uint32_t unit_bits = w + 1;
   const uint32_t cont_flag = 1u << w;
-
-  static thread_local std::vector<uint32_t> words;
-  words.resize((in_len - 8) / 4);
-  for (size_t i = 0; i < words.size(); ++i) {
-    std::memcpy(&words[i], in + 8 + 4 * i, 4);
-  }
-  RansDec dec;
-  std::memcpy(&dec.x, in, 8);
-  dec.words = words.data();
-  dec.n_words = static_cast<int64_t>(words.size());
-  dec.pos = 0;
 
   for (int64_t i = 0; i < n; ++i) {
     const int32_t row = indexes[i];
@@ -258,6 +249,32 @@ static int64_t rc_decode_impl(const uint8_t* in, int64_t in_len,
     symbols_out[i] = static_cast<int32_t>(bucket + offset[row]);
   }
   return 0;
+}
+
+// A stream's initial decoder state: its 8-byte final encoder state, then
+// its words. False when the length cannot be a stream's.
+static bool rc_decode_begin(const uint8_t* in, int64_t in_len,
+                            RansDec& dec) {
+  if (in_len < 8 || (in_len - 8) % 4 != 0) return false;
+  std::memcpy(&dec.x, in, 8);
+  dec.words = in + 8;
+  dec.n_words = (in_len - 8) / 4;
+  dec.pos = 0;
+  return true;
+}
+
+static int64_t rc_decode_impl(const uint8_t* in, int64_t in_len,
+                              const int32_t* indexes, int64_t n,
+                              const int32_t* cdf, int64_t cdf_stride,
+                              const int32_t* cdf_length,
+                              const int32_t* offset, int32_t precision,
+                              int32_t overflow_width,
+                              const uint16_t* lut, int32_t* symbols_out) {
+  RansDec dec;
+  if (!rc_decode_begin(in, in_len, dec)) return -1;
+  return rc_decode_symbols(dec, indexes, n, cdf, cdf_stride, cdf_length,
+                           offset, precision, overflow_width, lut,
+                           symbols_out);
 }
 
 }  // namespace
@@ -304,6 +321,56 @@ int64_t pcc_rc_decode_lut_batch(
         stream_len, cdf, cdf_stride, cdf_length, offset, precision,
         overflow_width, lut, symbols_out + s * stream_len);
     if (rc != 0) return -1;
+  }
+  return 0;
+}
+
+// Resumable batch decode: the streams of pcc_rc_decode_lut_batch decoded
+// in consecutive parts, each stream's decoder state (``state_x``, and
+// ``state_pos``: the next 32-bit word) kept by the caller between calls.
+// pcc_rc_decode_resume_begin sets the states of ``n_streams`` streams
+// (returns -1 when a length cannot be a stream's); each
+// pcc_rc_decode_lut_resume call then decodes the next ``stream_len``
+// symbols of every stream against its rows of ``indexes`` (one shared row
+// when ``shared_indexes`` is nonzero) and advances the states. The parts
+// of one stream, decoded in turn, are the symbols a one-shot decode gives.
+int64_t pcc_rc_decode_resume_begin(const uint8_t* data,
+                                   const int64_t* data_offsets,
+                                   int64_t n_streams, uint64_t* state_x,
+                                   int64_t* state_pos) {
+  for (int64_t s = 0; s < n_streams; ++s) {
+    RansDec dec;
+    if (!rc_decode_begin(data + data_offsets[s],
+                         data_offsets[s + 1] - data_offsets[s], dec))
+      return -1;
+    state_x[s] = dec.x;
+    state_pos[s] = 0;
+  }
+  return 0;
+}
+
+int64_t pcc_rc_decode_lut_resume(
+    const uint8_t* data, const int64_t* data_offsets, uint64_t* state_x,
+    int64_t* state_pos, const int32_t* indexes, int32_t shared_indexes,
+    int64_t n_streams, int64_t stream_len, const int32_t* cdf,
+    int64_t cdf_stride, const int32_t* cdf_length, const int32_t* offset,
+    int32_t precision, int32_t overflow_width, const uint16_t* lut,
+    int32_t* symbols_out) {
+  for (int64_t s = 0; s < n_streams; ++s) {
+    RansDec dec;
+    if (!rc_decode_begin(data + data_offsets[s],
+                         data_offsets[s + 1] - data_offsets[s], dec))
+      return -1;
+    dec.x = state_x[s];
+    dec.pos = state_pos[s];
+    const int32_t* idx =
+        shared_indexes ? indexes : indexes + s * stream_len;
+    const int64_t rc = rc_decode_symbols(
+        dec, idx, stream_len, cdf, cdf_stride, cdf_length, offset,
+        precision, overflow_width, lut, symbols_out + s * stream_len);
+    if (rc != 0) return -1;
+    state_x[s] = dec.x;
+    state_pos[s] = dec.pos;
   }
   return 0;
 }

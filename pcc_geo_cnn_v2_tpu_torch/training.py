@@ -100,6 +100,7 @@ class TrainConfig:
     early_stop_patience: int = 2000  # steps without val improvement
     log_every: int = 100
     keep_checkpoints: int = 2
+    max_seconds: float | None = None  # wall-time budget of fit_blocks
 
 # flax's truncated-normal variance scaling divides the stddev by the std of
 # a unit normal truncated to [-2, 2], so that the draws have variance 1/fan_in
@@ -498,8 +499,10 @@ class Trainer:
         data, val_data = self.device_data(train_ds), self.device_data(val_ds)
         best = [np.inf, self.start_step]
         step = self.start_step
-        t0 = time.time()
-        while step < cfg.max_steps:
+        t0 = t_start = time.time()
+        while step < cfg.max_steps and (
+                cfg.max_seconds is None
+                or time.time() - t_start < cfg.max_seconds):
             step += 1
             logs = self.step_blocks(data, step)
             if step % cfg.log_every == 0:

@@ -35,7 +35,7 @@ import torch
 from pcc_geo_cnn_v2_tpu_torch.ops.fused_conv import pack_tail_weights
 
 __all__ = ["msgpack_restore", "msgpack_serialize", "load_asset_tree",
-           "save_asset", "params_from_jax", "params_to_jax",
+           "save_asset", "merge_trees", "params_from_jax", "params_to_jax",
            "tail_weights_from_jax"]
 
 _EXT_NDARRAY = 1
@@ -210,6 +210,17 @@ def save_asset(tree, path):
     header time 0, so equal trees give equal files)."""
     Path(path).write_bytes(gzip.compress(msgpack_serialize(tree),
                                          compresslevel=9, mtime=0))
+
+
+def merge_trees(*trees):
+    """One ``{"params": ...}`` tree of the top-level modules of several
+    (each ``{"params": ...}`` or the inner dict), a later tree's module
+    replacing an earlier one's of the same name: a model's asset holding
+    only the modules it adds or fine-tunes, over its base model's."""
+    out = {}
+    for tree in trees:
+        out.update(tree.get("params", tree))
+    return {"params": out}
 
 
 def _flatten(tree, prefix=()):

@@ -7,7 +7,7 @@ is not all zero and the last synthesis bias lifted so that candidate sets
 are not empty) on 16³ blocks of a 64³ cloud, 5 blocks a chunk so that the
 last chunk is padded:
 
-- ``pack_points``, ``devoxelize_host`` and ``config_names`` equal JAX's;
+- ``pack_points``, ``devoxelize_host`` equal JAX's, ``config_names`` JAX's and c3p_cw;
 - the per-block rANS ``encode`` gives JAX's bytes and the Python twin's,
   and ``decode`` / ``decode_py`` invert it, symbols of 70,000 and -40,000
   included;
@@ -112,7 +112,8 @@ def test_pack_points_devoxelize_and_config_names_match_jax():
         want = jvox.devoxelize_host(grid, t)
         assert got.dtype == want.dtype == np.float32
         np.testing.assert_array_equal(got, want)
-    assert common.config_names() == jax_common.config_names()
+    # the port's configurations: JAX's, then the port's own c3p_cw
+    assert common.config_names() == jax_common.config_names() + ["c3p_cw"]
 
 
 def _tables(kind):
