@@ -127,8 +127,9 @@ exit):
    relative, each gradient leaf within 1e-3 of its largest |g|, the CPU
    replaying the card's ReLU gates: ``ReluGates``);
    ``fit_blocks`` for 20 steps at batch 32, every loss finite, the log
-   written, no kernel launched, s a step and blocks/s over the warm
-   steps, the peak memory; a new trainer on the directory resumes with
+   written, ``conv_wgrad`` launched once a routed layer a step and no
+   other kernel, s a step and blocks/s over the warm steps, the peak
+   memory; a new trainer on the directory resumes with
    params and Adam state equal bit for bit, and 5 steps of it equal 5
    steps of the first, bit for bit, under
    ``torch.use_deterministic_algorithms(True)``; 3 steps under
@@ -156,11 +157,11 @@ exit):
 18. Data-parallel training (``Trainer(group=...)``, ``parallel/mesh.py``),
    c3p at full width and batch 32: at world 1 on ``nccl``, one step under
    ``torch.use_deterministic_algorithms(True)`` bit-equal (parameters and
-   logs) to the trainer without a group, no kernel launched; then 2
-   processes on the one card over ``gloo`` with CUDA tensors (NCCL takes one
-   rank a card), 3 steps at the global batch 32: the ranks' parameters
-   bit-identical after every step, each loss within 1e-4 relative of the
-   single process's.
+   logs) to the trainer without a group, ``conv_wgrad`` once a routed
+   layer a step and no other kernel; then 2 processes on the one card
+   over ``gloo`` with CUDA tensors (NCCL takes one rank a card), 3 steps at
+   the global batch 32: the ranks' parameters bit-identical after every step,
+   each loss within 1e-4 relative of the single process's.
 19. Spatial (sp) sharding (``parallel/spatial.py``), c3p at full width in
    f32 on the most populated 256³ cell of the cloud (octree level 2, 64
    blocks of 64³ in one block): the unsharded ``encode_syms`` /
@@ -216,9 +217,10 @@ exit):
    the two reports, its BD-PSNR of both rungs within 0.1 dB of the same
    ladder over JAX's rows; then ``train_sweep`` cut in depth (two λ
    warm-seq, one 50-step ``K_INNER`` call each at batch 8, blocks of two
-   clouds; no kernel), ``export_rd_assets`` of it (the assets reload equal
-   to the trained params) and ``assets_to_ckpt`` of one committed λ (the
-   checkpoint's params equal the asset's). Stage walls and the rows
+   clouds; ``conv_wgrad`` alone in a step), ``export_rd_assets`` of it
+   (the assets reload equal to the trained params) and
+   ``assets_to_ckpt`` of one committed λ (the checkpoint's params equal
+   the asset's). Stage walls and the rows
    beside JAX's are printed.
 22. The CLIs' ``--debug`` harness, counted, on the cloud of phase 6
    written as a PLY without normals: ``cli.compress.main([..., "--debug"])``
@@ -241,11 +243,27 @@ exit):
    block's output bit-equal alone, in 7-block calls, moved 37 places in
    the batch and over two calls; the median ms of a 128-block call (bursts
    of four) beside the cuDNN form's (``library_ms``) and the bound.
+24. ``conv_wgrad`` (``csrc/conv_wgrad.cu``: the weight gradient of the
+   stride-1 k3 convolutions in training) at c3p's routed layers
+   (``WGRAD_LAYERS``: 16 -> 16 at 64^3 and 32^3, 32 -> 32 at 32^3 and
+   16^3, 16 -> 1 at 64^3) at batch 32 on seeded random inputs: the
+   kernel against its plain version in f32 and in f64 (within
+   ``WGRAD_TOL`` of the largest |value|) and ``torch.nn.grad.
+   conv3d_weight`` (``WGRAD_LIB_TOL``), two calls bit-equal; its
+   median ms (bursts of four) beside the bound, ``conv3d_weight``'s time
+   (``library_ms``) and cuDNN's deterministic weight gradient in NCDHW and
+   channels-last; every shape on ragged volumes (``WGRAD_RAGGED``: odd W
+   and W % 4 == 2 take the narrower copies) against the f64 sum. Then a
+   ``Trainer.step_blocks`` from one state twice (c3p, batch 32, under
+   ``torch.use_deterministic_algorithms(True)``):
+   parameters bit-equal, ``conv_wgrad`` launched once a routed layer a
+   step and no other kernel; and 0 times in an encode and decode of the
+   cut.
 
 The launch counts are set to 0 just before each path and read just after
 (for the bench, inside its process, around its timed window; for phase 20,
 around its in-process experiment; for phase 21, around each rd_eval
-run). Phases 12-23 print their seconds.
+run). Phases 12-24 print their seconds.
 Prints a ``kernels`` JSON line (per kernel: launches on its path and on
 every path, max error against the plain version, its median time (K1,
 K2, K3, K4 and K5 per call in bursts of four calls, so that the wrapper's
@@ -253,7 +271,7 @@ host time overlaps the kernels), the plain time, the least time the card could t
 same work and the share of it reached (K1 and K3 at the chunk and the
 rerun, K2, K4, K5), the CUDA launches of one call (K2, K3, K5) and, for K4, the
 cuDNN chain's time and ms / library; for ``conv_one_out`` its rows of
-phase 23), the card line, and last
+phase 23, for ``conv_wgrad`` those of phase 24), the card line, and last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -347,6 +365,23 @@ ONE_OUT_BLOCKS, ONE_OUT_TOL = 128, 1e-5
 # kernels that run only in passes that record no autograd graph: a
 # training step launches none of them, its validation passes may
 NO_GRAD_KERNELS = ("conv_one_out",)
+# kernels that run only in training steps (weight gradients): a codec pass
+# launches none of them
+TRAIN_KERNELS = ("conv_wgrad",)
+# phase 24: conv_wgrad at c3p's routed layers at batch BATCH on seeded
+# random inputs — (label, cin, cout, edge) — held against its plain version
+# in f32 (the same split) and in f64 (the exact sum) within WGRAD_TOL of
+# the largest |value|, and against torch.nn.grad.conv3d_weight within
+# WGRAD_LIB_TOL: cuDNN sums the 0.26-8.4 M products an entry in its own
+# order, and at 32 -> 32 at 16^3 read 1.1e-5 of the largest value from the
+# kernel while the kernel was 5.2e-7 from the plain version
+WGRAD_LAYERS = (("synthesis block 2", 16, 16, 64),
+                ("analysis block 0", 16, 16, 32),
+                ("synthesis block 1", 32, 32, 32),
+                ("analysis block 1", 32, 32, 16),
+                ("synthesis last layer", 16, 1, 64))
+WGRAD_TOL, WGRAD_LIB_TOL = 1e-5, 1e-4
+WGRAD_RAGGED = ((13, 10, 23), (12, 9, 30))  # odd W; W % 4 == 2
 # phase 15: training c3p at batch BATCH (the JAX default of 32); the card's
 # step against the CPU's on PARITY_BLOCKS blocks, loss within 1e-5
 # relative, every gradient leaf within 1e-3 of its largest |g| (cuDNN and
@@ -1508,7 +1543,11 @@ def check_training(device, blocks, params, drive, expect_launches, points,
         peak = torch.cuda.max_memory_allocated()
         counts_fit = dict(kernels.launches)
         assert not any(v for k, v in counts_fit.items()
-                       if k not in NO_GRAD_KERNELS), counts_fit
+                       if k not in NO_GRAD_KERNELS + TRAIN_KERNELS), \
+            counts_fit
+        routed = routed_wgrad_layers(trainer.model)
+        assert counts_fit["conv_wgrad"] == TRAIN_STEPS * len(routed), \
+            (counts_fit, routed)
         records = [json.loads(line) for line in
                    (run_dir / "train_log.jsonl").read_text().splitlines()]
         train = [r for r in records if r["split"] == "train"]
@@ -1567,9 +1606,10 @@ def check_training(device, blocks, params, drive, expect_launches, points,
             f"({100 * busy / 1e3 / wall:.1f}%, idle "
             f"{100 - 100 * busy / 1e3 / wall:.1f}%), convolutions "
             f"{conv:.1f} ms ({100 * conv / busy:.1f}% of device time), "
-            f"everything else {busy - conv:.1f} ms; no kernel launched in a "
-            f"step, conv_one_out {counts_fit['conv_one_out']} times in the "
-            f"val pass")
+            f"everything else {busy - conv:.1f} ms; conv_wgrad "
+            f"{counts_fit['conv_wgrad']} times ({len(routed)} a step, once a "
+            f"routed layer), no other kernel in a step, conv_one_out "
+            f"{counts_fit['conv_one_out']} times in the val pass")
 
         # 4. export, read back, encode the whole cloud through K1 and K2
         tree = params_to_jax(trainer.model.state_dict())
@@ -1764,7 +1804,7 @@ def _dp_rank(rank, init_method, cfg, batches, out_dir, device):
 
 def check_data_parallel(device, blocks):
     """Phase 18: ``Trainer(group=...)`` on the card. Returns the launch
-    counts of the world-1 step (no kernel: training runs module convs)."""
+    counts of the world-1 steps (``conv_wgrad`` alone)."""
     import tempfile
 
     import torch
@@ -1810,11 +1850,14 @@ def check_data_parallel(device, blocks):
         finally:
             torch.use_deterministic_algorithms(False)
         assert backend == backend_for(device, 1), backend  # nccl on a card
-        assert not any(counts.values()), counts
+        routed = routed_wgrad_layers(single.model)
+        assert counts["conv_wgrad"] == 2 * len(routed), (counts, routed)
+        assert not any(v for k, v in counts.items()
+                       if k not in TRAIN_KERNELS), counts
         log(f"data-parallel step, {backend} at world 1, c3p at batch "
             f"{BATCH} of {BLOCK}^3: parameters and logs bit-equal to the "
-            f"trainer without a group (loss {float(got['loss'])!r}); no "
-            f"kernel launched")
+            f"trainer without a group (loss {float(got['loss'])!r}); "
+            f"conv_wgrad once a routed layer a step, no other kernel")
 
         # 2. DP_WORLD ranks on one card over gloo with CUDA tensors,
         # against the single process's steps 1..DP_STEPS
@@ -2696,7 +2739,8 @@ def check_rd_tools(device, card, expect_launches):
         walls["train_sweep"] = time.time() - t0
         counts_tr = dict(kernels.launches)
         assert not any(v for k, v in counts_tr.items()
-                       if k not in NO_GRAD_KERNELS), counts_tr
+                       if k not in NO_GRAD_KERNELS + TRAIN_KERNELS), counts_tr
+        assert counts_tr["conv_wgrad"] > 0, counts_tr
         # steps advance K_INNER at a time, as the JAX tool's scan calls
         k = -(-RD21_TRAIN_STEPS // rd_train_all.K_INNER) * rd_train_all.K_INNER
         for d in dirs:
@@ -2708,8 +2752,9 @@ def check_rd_tools(device, card, expect_launches):
             f"{RD21_TRAIN_SEEDS} ({walls['training blocks']:.1f} s to make "
             f"them), {walls['train_sweep']:.1f} s "
             f"({2 * k / walls['train_sweep']:.2f} steps/s with the set-up); "
-            f"no kernel launched in a step, conv_one_out "
-            f"{counts_tr['conv_one_out']} times in its no-graph passes")
+            f"conv_wgrad {counts_tr['conv_wgrad']} times, no other kernel "
+            f"in a step, conv_one_out {counts_tr['conv_one_out']} times in "
+            f"its no-graph passes")
         t0 = time.time()
         export_rd_assets.export(tmp / "models", [dirs[0].parent.name],
                                 tmp / "export")
@@ -2966,6 +3011,176 @@ def check_conv_one_out(card, layers):
     return rows
 
 
+# phase 24: conv_wgrad, training's stride-1 k3 weight gradients
+
+
+def wgrad_library(xp, dy, weight, layout=None):
+    """The weight gradient as cuDNN's deterministic algorithm computes it
+    (``aten.convolution_backward``, the weight's part alone), in NCDHW or,
+    with ``layout=torch.channels_last_3d``, channels-last."""
+    import torch
+
+    if layout is not None:
+        xp, dy, weight = (t.contiguous(memory_format=layout)
+                          for t in (xp, dy, weight))
+    return torch.ops.aten.convolution_backward(
+        dy, xp, weight, None, [1] * 3, [0] * 3, [1] * 3, False, [0] * 3, 1,
+        (False, True, False))[1]
+
+
+def routed_wgrad_layers(model):
+    """Names of ``model``'s convolutions whose training weight gradient
+    ``conv_wgrad`` computes (k3, stride 1, channels in its shapes)."""
+    from pcc_geo_cnn_v2_tpu_torch.models.transforms import Conv, ConvTranspose
+    from pcc_geo_cnn_v2_tpu_torch.ops import conv_wgrad
+
+    return [name for name, m in model.named_modules()
+            if isinstance(m, (Conv, ConvTranspose)) and m.k == 3
+            and m.s == 1 and tuple(m.weight.shape[1::-1]) in conv_wgrad.SHAPES]
+
+
+def check_conv_wgrad(card, device, blocks, codec_pass):
+    """Phase 24 (module docstring). ``codec_pass()`` runs an encode and a
+    decode. Returns (one row a shape, the launches of a training step)."""
+    import copy
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from pcc_geo_cnn_v2_tpu_torch.codec import deterministic_convs
+    from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
+    from pcc_geo_cnn_v2_tpu_torch.ops import conv_wgrad, kernels
+    from pcc_geo_cnn_v2_tpu_torch.training import TrainConfig, Trainer
+    from pcc_geo_cnn_v2_tpu_torch.utils.data import BlockDataset
+
+    t_phase = time.time()
+    deterministic_convs()
+    gen = torch.Generator(device=device).manual_seed(24)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max())
+
+    rows = []
+    for label, cin, cout, size in WGRAD_LAYERS:
+        x = torch.randn((BATCH, cin, size, size, size), generator=gen,
+                        device=device)
+        xp = F.pad(x, (1, 1) * 3)
+        dy = torch.randn((BATCH, cout, size, size, size), generator=gen,
+                         device=device)
+        w = torch.zeros((cout, cin, 3, 3, 3), device=device,
+                        requires_grad=True)
+        assert conv_wgrad.routes(x, w, 3, 1), label
+        with torch.no_grad():
+            assert not conv_wgrad.routes(x, w, 3, 1), label
+
+        def kernel():
+            return conv_wgrad.conv3d_wgrad(xp, dy)
+
+        kernels.reset_launches()
+        got = kernel()
+        assert kernels.launches["conv_wgrad"] == 1
+        assert torch.equal(kernel(), got), f"{label}: two calls differ"
+        t0 = time.time()
+        plain = conv_wgrad.conv3d_wgrad_plain(xp, dy)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.time() - t0)
+        exact = conv_wgrad.conv3d_wgrad_plain(xp.double(), dy.double())
+        lib = torch.nn.grad.conv3d_weight(xp, w.shape, dy)
+        err_plain, err_exact = rel(got, plain), rel(got, exact)
+        err_lib, lib_exact = rel(got, lib), rel(lib, exact)
+        assert err_plain <= WGRAD_TOL and err_exact <= WGRAD_TOL, \
+            (label, err_plain, err_exact)
+        assert err_lib <= WGRAD_LIB_TOL, (label, err_lib)
+        ms = time_ms(kernel, 10, burst=4)
+        library_ms = time_ms(
+            lambda: torch.nn.grad.conv3d_weight(xp, w.shape, dy), 3)
+        cudnn_ms = time_ms(lambda: wgrad_library(xp, dy, w.detach()), 3)
+        cl_ms = time_ms(lambda: wgrad_library(
+            xp, dy, w.detach(), torch.channels_last_3d), 3)
+        flops = 2 * 27 * cin * cout * dy[:, 0].numel()
+        nbytes = 4 * (xp.numel() + dy.numel() + w.numel())
+        bound_ms, bound_by = bound(nbytes, 0, flops)
+        row = {"shape": label, "cin": cin, "cout": cout, "size": size,
+               "batch": BATCH, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "cudnn_det_ms": cudnn_ms,
+               "cudnn_det_channels_last_ms": cl_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bound_share": bound_ms / ms,
+               "tflops": flops / ms / 1e9, "max_err_of_max": err_exact,
+               "plain_err_of_max": err_plain, "library_err_of_max": err_lib,
+               "library_exact_err_of_max": lib_exact}
+        rows.append(row)
+        log(f"conv_wgrad {label} ({cin} -> {cout} at {size}^3, batch "
+            f"{BATCH}, {flops / 1e9:.2f} GFLOP): {ms:.4f} ms "
+            f"({row['tflops']:.2f} TFLOP/s), bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({100 * row['bound_share']:.1f}% reached); "
+            f"conv3d_weight {library_ms:.4f} ms ({library_ms / ms:.1f}x), "
+            f"cuDNN's deterministic wgrad {cudnn_ms:.4f} ms NCDHW, "
+            f"{cl_ms:.4f} ms channels-last; plain {plain_ms:.1f} ms; max "
+            f"|err| / max |value| {err_exact:.3g} against the f64 sum, "
+            f"{err_plain:.3g} against the plain version, {err_lib:.3g} "
+            f"against conv3d_weight (itself {lib_exact:.3g} from the f64 "
+            f"sum); two calls bit-equal [{card}]")
+        del x, xp, dy, got, plain, exact, lib
+    # ragged volumes: masked tile edges, and the 4- and 8-byte copies that
+    # rows not a multiple of 16 bytes take
+    for cin, cout in sorted(conv_wgrad.SHAPES):
+        for size in WGRAD_RAGGED:
+            xp = F.pad(torch.randn((3, cin, *size), generator=gen,
+                                   device=device), (1, 1) * 3)
+            dy = torch.randn((3, cout, *size), generator=gen, device=device)
+            err = rel(conv_wgrad.conv3d_wgrad(xp, dy),
+                      conv_wgrad.conv3d_wgrad_plain(xp.double(),
+                                                    dy.double()))
+            assert err <= WGRAD_TOL, (cin, cout, size, err)
+    log(f"conv_wgrad on ragged volumes {WGRAD_RAGGED} at batch 3, every "
+        f"shape: within {WGRAD_TOL} of the f64 sum")
+
+    # a training step from one state twice: bit-equal parameters, one
+    # launch a routed layer
+    cfg = TrainConfig(batch_size=BATCH, block_size=BLOCK)
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = Trainer(build_model("c3p"), cfg, tmp, seed=0, warm_start=ASSET,
+                     device=device)
+        data = tr.device_data(BlockDataset(blocks))
+        routed = routed_wgrad_layers(tr.model)
+        params = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        opt = copy.deepcopy(tr.opt.state_dict())
+        after, counts = [], []
+        torch.use_deterministic_algorithms(True)
+        try:
+            for _ in range(2):
+                tr.model.load_state_dict(params)
+                tr.opt.load_state_dict(copy.deepcopy(opt))
+                kernels.reset_launches()
+                tr.step_blocks(data, 1)
+                torch.cuda.synchronize()
+                counts.append(dict(kernels.launches))
+                after.append({k: v.clone() for k, v in
+                              tr.model.state_dict().items()})
+        finally:
+            torch.use_deterministic_algorithms(False)
+        for k, v in after[0].items():
+            assert torch.equal(v, after[1][k]), f"step from one state: {k}"
+        assert not torch.equal(after[0][routed[0] + ".weight"],
+                               params[routed[0] + ".weight"])
+        for c in counts:
+            assert c["conv_wgrad"] == len(routed), (c, routed)
+            assert not any(v for k, v in c.items() if k != "conv_wgrad"), c
+        del tr, data
+    kernels.reset_launches()
+    codec_pass()
+    codec_counts = dict(kernels.launches)
+    assert codec_counts["conv_wgrad"] == 0, codec_counts
+    log(f"a training step from one state twice: parameters bit-equal; "
+        f"conv_wgrad launched {len(routed)} times a step, once a routed "
+        f"layer ({', '.join(routed)}); 0 times in a codec encode and "
+        f"decode (launches {codec_counts}) [{card}]")
+    log(f"phase 24: {time.time() - t_phase:.1f} s")
+    return rows, len(routed)
+
+
 def main():
     import os
 
@@ -3164,7 +3379,7 @@ def run(device):
         f"({t_dec:.2f} s); launches {counts_d1}")
     expect_launches("the d1 path", counts_d1,
                     ("bucket_colsums", "halo_edt", "conv_one_out"),
-                    ("bucket_colsums_d2", "edt_sweep"))
+                    ("bucket_colsums_d2", "edt_sweep") + TRAIN_KERNELS)
     # the synthesis' last layer: one launch a chunk in the encoder's
     # canonical decode and one in the decoder's
     n_chunks = -(-len(blocks) // BATCH)
@@ -3499,6 +3714,12 @@ def run(device):
         device, codec,
         lambda lo, hi: codec.chunk_points(flat_dev, offsets, lo, hi, budget)))
 
+    # phase 24: conv_wgrad, training's stride-1 k3 weight gradients; the
+    # codec pass is the cut's encode and decode
+    torch.cuda.empty_cache()
+    wgrad, wgrad_step = check_conv_wgrad(card, device, blocks,
+                                         lambda: drive(codec, cloud=cut))
+
     by_path = {"d1": counts_d1, "A": counts_a, "B": counts_b, "C": counts_c,
                "C_bf16": counts_cb, "c2": counts_v1["c2"],
                "c1": counts_v1["c1"], "host_fixed": counts_hf,
@@ -3542,6 +3763,12 @@ def run(device):
                  "replaces": None, "launches": counts_d1["conv_one_out"],
                  "path": "d1", "shapes": one_out,
                  "launches_by_path": {k: v.get("conv_one_out")
+                                      for k, v in by_path.items()}})
+    rows.append({"name": "conv_wgrad", "route": "cuda",
+                 "source": "pcc_geo_cnn_v2_tpu_torch/csrc/conv_wgrad.cu",
+                 "replaces": None, "launches": wgrad_step,
+                 "path": "a c3p training step", "shapes": wgrad,
+                 "launches_by_path": {k: v.get("conv_wgrad")
                                       for k, v in by_path.items()}})
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pcc_geo_cnn_v2_tpu_torch.ops import conv_one_out
+from pcc_geo_cnn_v2_tpu_torch.ops import conv_one_out, conv_wgrad
 from pcc_geo_cnn_v2_tpu_torch.utils import trace
 
 __all__ = ["Conv", "ConvTranspose", "subpixel_conv_transpose",
@@ -89,7 +89,10 @@ def _add_bias(y, bias):
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv(padding="SAME")`` on NCDHW; weight OIDHW."""
+    """flax ``nn.Conv(padding="SAME")`` on NCDHW; weight OIDHW. Where
+    ``conv_wgrad.routes`` says so (a recorded graph, f32 on the card, k3
+    stride 1 at the channels it has), the weight gradient comes from the
+    hand-written ``conv_wgrad`` in place of cuDNN's deterministic one."""
 
     def __init__(self, cin, cout, kernel=3, stride=1, bias=True, dtype=None):
         super().__init__()
@@ -104,6 +107,8 @@ class Conv(nn.Module):
         pads = []
         for n in reversed(x.shape[2:]):  # F.pad lists the last dim first
             pads.extend(same_pads(n, self.k, self.s))
+        if conv_wgrad.routes(x, w, self.k, self.s):
+            return conv_wgrad.conv3d(F.pad(x, pads), w, b)
         if x.dtype == torch.float32:
             return F.conv3d(F.pad(x, pads), w, b, self.s)
         return _add_bias(_conv3d(F.pad(x, pads), w, self.s), b)
@@ -131,7 +136,9 @@ class ConvTranspose(nn.Module):
     single ``conv3d``. A layer into one output channel runs instead on
     the hand-written ``conv_one_out`` where ``conv_one_out.routes`` says
     so (f32 on the card, in a pass that records no graph): cuDNN fills one
-    column of its tile with it.
+    column of its tile with it. At stride 1 the weight gradient of a
+    training pass comes from ``conv_wgrad`` where ``conv_wgrad.routes``
+    says so, as in :class:`Conv`.
     """
 
     def __init__(self, cin, cout, kernel=3, stride=1, bias=True, dtype=None):
@@ -154,6 +161,8 @@ class ConvTranspose(nn.Module):
         pad_a, pad_b = transpose_pads(k, s)
         if s == 1:
             xp = F.pad(x, (pad_a, pad_b) * 3)
+            if conv_wgrad.routes(x, weight, k, s):
+                return conv_wgrad.conv3d(xp, weight, bias)
             if x.dtype == torch.float32:
                 return F.conv3d(xp, weight, bias)
             return _add_bias(_conv3d(xp, weight), bias)

@@ -66,6 +66,12 @@ KERNELS = {
         "pcc_conv_one_out": [_P] * 4 + [_I] * 11 + [_P],
         "pcc_conv_one_out_geometry": [_I, _I, _I, _P],
     }),
+    # no TPU kernel: training's stride-1 k3 weight gradients
+    # (ops/conv_wgrad.py)
+    "conv_wgrad": ("conv_wgrad.cu", {
+        "pcc_conv_wgrad": [_P] * 4 + [_I] * 7 + [_P],
+        "pcc_conv_wgrad_geometry": [_I, _I, _P],
+    }),
 }
 
 
