@@ -1328,7 +1328,7 @@ def k9_layer_ms(codec, pts):
     with torch.no_grad():
         x = voxelize(pts, BLOCK)
         y_sym = m.encode_syms(x)["y_sym"]
-        prior = m.conditional if codec.is_v2 else m.entropy_bottleneck
+        prior = getattr(m, "conditional", m.entropy_bottleneck)
         syn = m.synthesis_t
         h = prior.dequantize_symbols(y_sym).permute(0, 4, 1, 2, 3)
         h = F.relu(syn.ConvTranspose_1(F.relu(syn.ConvTranspose_0(
@@ -1336,7 +1336,7 @@ def k9_layer_ms(codec, pts):
         xc = x.permute(0, 4, 1, 2, 3).contiguous()
         return (time_ms(lambda: m.analysis_t.Conv_0(xc), 5),
                 time_ms(lambda: syn.ConvTranspose_2(h), 5),
-                time_ms(lambda: codec._decode_y(y_sym), 3))
+                time_ms(lambda: m.decode_y(y_sym), 3))
 
 
 def host_d1_mse(block, x_hat, t):
@@ -2881,6 +2881,7 @@ def one_out_inputs(codec, layer, pts):
     ``pts``: [N, cin, S, S, S] f32."""
     import torch
 
+    from pcc_geo_cnn_v2_tpu_torch.codec import deterministic_convs
     from pcc_geo_cnn_v2_tpu_torch.ops.voxel import voxelize
 
     seen = []
@@ -2890,7 +2891,8 @@ def one_out_inputs(codec, layer, pts):
         with torch.no_grad():
             model = codec.model
             y_sym = model.encode_syms(voxelize(pts, BLOCK))["y_sym"]
-            codec._decode_y(y_sym)
+            deterministic_convs()
+            model.decode_y(y_sym)
     finally:
         hook.remove()
     assert len(seen) == 1, len(seen)
@@ -3517,7 +3519,7 @@ def run(device):
         codec_v = BlockCodec(build_model(cfg), load_asset_tree(
             RD_ASSETS / cfg / f"{V1_LAMBDA}.msgpack.gz"), block_size=BLOCK,
             batch_blocks=BATCH, device=device)
-        assert codec_v.is_v2 == (cfg == "c2")
+        assert codec_v.strings.has_z == (cfg == "c2")
         blobs, metadata, decoded, counts_v1[cfg], t_enc, t_dec = drive(
             codec_v)
         bpp_v = len(blobs[0]) * 8 / len(points)
@@ -3528,7 +3530,8 @@ def run(device):
         expect_launches(cfg, counts_v1[cfg], ("bucket_colsums", "halo_edt"),
                         ("bucket_colsums_d2", "edt_sweep") + k4_names)
         ms_a, ms_s, ms_dec = k9_layer_ms(codec_v, pts0)
-        log(f"{cfg} ({'v2' if codec_v.is_v2 else 'v1'}, V1 transforms, "
+        log(f"{cfg} ({'v2' if codec_v.strings.has_z else 'v1'}, V1 "
+            f"transforms, "
             f"{codec_v.model.num_filters} filters, rd/{cfg}/{V1_LAMBDA}): "
             f"{len(blocks)} blocks, {len(decoded[0])} decoded points, "
             f"bit-exact; {bpp_v:.4f} bpp, D1 PSNR {psnr_v:.4f} dB (host "

@@ -7,17 +7,19 @@ with input normals the d2 group), the host-threshold encoder
 pool, or ``fixed_threshold``) and the decoder
 (:meth:`BlockCodec.decompress_blocks`), for v2 (hyperprior: c2, c3, c3p)
 and v1 (factorized prior: c1) models, and for c3p_cw (c3p with the
-channel-wise context model, ``CompressionModelCW``). The ``--debug``
-harness of the CLIs adds :meth:`BlockCodec.encode_blocks` (the models'
-fused ``encode``), :meth:`BlockCodec.entropy_encode` (one block's
-strings) and ``decompress_blocks(return_debug=True)`` (the decoder's
-symbols and packed masks).
+channel-wise context model, ``CompressionModelCW``), through one protocol
+of the models (``models/codec_models.py``) and one owner of their string
+format (``coding/strings.py``): no path here asks a model's kind. The
+``--debug`` harness of the CLIs adds :meth:`BlockCodec.encode_blocks`
+(the models' fused ``encode``), :meth:`BlockCodec.entropy_encode` (one
+block's strings) and ``decompress_blocks(return_debug=True)`` (the
+decoder's symbols and packed masks).
 
-Encode, per chunk of ``batch_blocks`` blocks: voxelize → analysis pass
-(symbols only) → the decoder-canonical ``decode_z`` / ``decode_y`` (v1:
-``decode``) → threshold sweep → packed per-metric masks. Then the host
-range coder, the encoder-side full-cloud metrics (D1 on kernel K2; D2
-through argmin halo EDTs) and the best-variant selection per metric group.
+Encode, per chunk of ``batch_blocks`` blocks: voxelize → the model's
+decoder-canonical pass (``canonical``: symbols, y rows, x_hat) →
+threshold sweep → packed per-metric masks. Then the host range coder,
+the encoder-side full-cloud metrics (D1 on kernel K2; D2 through argmin
+halo EDTs) and the best-variant selection per metric group.
 
 The sweep has three backends (``sweep_backend``), all giving the same d1
 picks because every sum in the port is an exact integer:
@@ -55,17 +57,13 @@ With ``conv_backend="pallas"`` the residual tails run on the hand-written
 kernels K4a / K4b, which sum every voxel in one fixed order whatever the
 batch; the strided convs around them stay cuDNN under the same flags.
 
-The channel-wise model codes y in slices, each under a mean and a scale
-that depend on the slices decoded before it. The encoder's canonical pass
-runs that chain on the device (``CompressionModelCW.encode_syms``, the
-decoder's own per-slice functions at the same batch width), and its y
-string holds the slices in turn (y in NCDHW order, one string a block).
-The decoder then alternates, per slice: μ and the σ rows on the device,
-the rows to the host, the range decode of that slice of every block of
-the chunk (``range_coder.BatchDecoder``, which keeps each string's coder
-state between slices), the symbols back to the device for ŷ. One ulp of
-μ apart, encoder and decoder would code different symbols, so the chain
-obeys the contract below as x_hat does.
+Decode, one loop for every model: z rANS, each chunk's ``decode_hyper``;
+per slice (the channel-wise model's y string holds ``num_slices`` in
+turn) every chunk's ``slice_params`` dispatched before any fetch, then per
+chunk the rows to the host, the resumable range decode of the chunk's
+slice and ``slice_lrp``; last ``decode_y``, masks and unpack. The
+channel-wise encoder runs the same slice functions at the same batch
+width: one ulp of μ apart, the two would code different symbols.
 
 Blocks whose candidate count overflows the sweep's budget
 (``bucket_k``) are re-swept through the same kernel at ``K = B³``, where
@@ -92,6 +90,8 @@ before the constructor returns.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import copy
 import logging
 import os
@@ -100,14 +100,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from pcc_geo_cnn_v2_tpu_torch.coding import range_coder as rc
-from pcc_geo_cnn_v2_tpu_torch.models.codec_models import (
-    CompressionModelCW,
-    CompressionModelV2,
-)
+from pcc_geo_cnn_v2_tpu_torch.coding.strings import StringFormat
 from pcc_geo_cnn_v2_tpu_torch.models.entropy import (
-    build_factorized_cdf,
-    build_gaussian_cdf,
     refine_factorized_quantiles,
 )
 from pcc_geo_cnn_v2_tpu_torch.ops.bitunpack import unpack_mask_coords
@@ -152,7 +146,8 @@ from pcc_geo_cnn_v2_tpu_torch.weights import params_from_jax
 logger = logging.getLogger(__name__)
 
 __all__ = ["BlockCodec", "SWEEP_BACKENDS", "resolve_device",
-           "deterministic_convs", "select_best_per_opt_metric"]
+           "deterministic_convs", "select_best_per_opt_metric",
+           "point_budget"]
 
 SWEEP_BACKENDS = ("bucket", "pallas", "xla")
 
@@ -165,6 +160,12 @@ def resolve_device(device=None):
                                "plain CPU versions explicitly")
         device = "cuda"
     return torch.device(device)
+
+
+def point_budget(blocks):
+    """Points a row of a chunk's point lists holds: the largest block's
+    count rounded up to a power of two, at least 64."""
+    return max(int(2 ** np.ceil(np.log2(max(len(b) for b in blocks)))), 64)
 
 
 def _get_normals(arr, with_normals):
@@ -248,8 +249,7 @@ class BlockCodec:
     def __init__(self, model, params, block_size=64, n_thresholds=2 ** 8,
                  batch_blocks=32, threads=8, device=None,
                  sweep_backend="bucket", devices=None):
-        """:param model: a ``CompressionModelV2`` or ``CompressionModelV1``
-            (``models.configs.build_model``).
+        """:param model: a model of ``models.configs.build_model``.
         :param params: flax-layout numpy param tree (as read by
             ``weights.load_asset_tree``).
         :param n_thresholds: size of the threshold grid
@@ -275,8 +275,6 @@ class BlockCodec:
                              f"of {SWEEP_BACKENDS + ('auto',)}")
         self.sweep_backend = sweep_backend
         self.model = model.to(self.device).eval()
-        self.is_v2 = isinstance(model, CompressionModelV2)
-        self.is_cw = isinstance(model, CompressionModelCW)
         self.block_size = int(block_size)
         self.thresholds = np.linspace(0, 1.0, n_thresholds)
         self.thr_dev = torch.tensor(self.thresholds, dtype=torch.float32,
@@ -301,14 +299,12 @@ class BlockCodec:
             _Lane(dev, copy.deepcopy(self.model).to(dev),
                   self.thr_dev.to(dev)) for dev in self.devices[1:]]
         self.set_params(params)
-        if self.is_v2:
-            self.gc_table = build_gaussian_cdf(
-                model.conditional.scale_table, model.conditional.tail_mass)
 
     def set_params(self, params):
         """Load weights into every replica; re-solve the factorized-prior
         quantiles first (float64 host bisection, so a separate decode
-        process derives identical medians and CDF tables)."""
+        process derives identical medians and CDF tables), and make the
+        string format (:attr:`strings`) from them."""
         tree = dict(params.get("params", params))
         eb = dict(tree["entropy_bottleneck"])
         eb["quantiles"] = refine_factorized_quantiles(eb)["quantiles"]
@@ -316,29 +312,17 @@ class BlockCodec:
         state = params_from_jax(tree)
         for lane in self._lanes:
             lane.model.load_state_dict(state)
-            if self.is_v2:
-                # the fused-conv backend's packed tail weights follow the load
-                lane.model.pack_fused_weights()
+            # the fused-conv backend's packed tail weights follow the load
+            lane.model.pack_fused_weights()
             if lane.device.type == "cuda":
                 # weights and thresholds complete before any stream reads
                 # them (the copies ran on this thread's current stream)
                 torch.cuda.synchronize(lane.device)
-        self.eb_table = build_factorized_cdf(eb)
+        self.strings = StringFormat(
+            self.model, (self.block_size // 8,) * 3 + (
+                self.model.num_filters,), eb)
 
     # -- shape helpers ----------------------------------------------------
-
-    @property
-    def y_shape(self):
-        b = self.block_size // 8
-        return (b, b, b, self.model.num_filters)
-
-    @property
-    def z_shape(self):
-        b = self.block_size // 16
-        return (b, b, b, self.model.num_filters)
-
-    def _channel_indexes(self, shape):
-        return np.broadcast_to(np.arange(shape[-1], dtype=np.int32), shape)
 
     def _chunks(self, n):
         bs = self.batch_blocks
@@ -352,67 +336,19 @@ class BlockCodec:
             t = torch.cat([t, t.new_zeros((rows - len(t),) + t.shape[1:])])
         return t
 
-    # -- canonical device passes ------------------------------------------
-
-    def _decode_z(self, z_sym, lane=None):
-        """``lane`` (:class:`_Lane`) is the replica to run on: the first
-        device's when None, here and in the methods below."""
-        deterministic_convs()
-        model = (lane or self._lanes[0]).model
-        return model.decode_z(z_sym)[1].to(torch.uint8)
-
-    def _decode_y(self, y_sym, lane=None):
-        """The decoder-canonical x_hat (v1: ``decode``)."""
-        deterministic_convs()
-        model = (lane or self._lanes[0]).model
-        if self.is_v2:
-            return model.decode_y(y_sym)
-        return model.decode(y_sym)
-
     def _masks(self, x_hat, thr):
         """Packed 1-bit masks ``x_hat > thr`` per block: [N, B³/8]."""
         mask = x_hat[..., 0] > thr[:, None, None, None]
         return packbits(mask.reshape(mask.shape[0], -1))
 
-    def _y_order(self, a):
-        """y arrays ([..., b, b, b, C]) in the order the y string holds
-        them: NDHWC, and for the channel-wise model NCDHW, so that each
-        slice is one run of the string."""
-        return np.moveaxis(a, -1, -4) if self.is_cw else a
-
     def entropy_encode_all(self, out):
-        """Range-code every block's symbols → list of (y, z) strings (v1:
-        (y,), coded with the factorized prior per channel)."""
-        if not self.is_v2:
-            y = rc.encode_batch(out["y_sym"],
-                                self._channel_indexes(self.y_shape),
-                                self.eb_table)
-            return [(s,) for s in y]
-        y = rc.encode_batch(self._y_order(out["y_sym"]),
-                            self._y_order(out["y_idx"]), self.gc_table)
-        z = rc.encode_batch(out["z_sym"],
-                            self._channel_indexes(self.z_shape),
-                            self.eb_table)
-        return list(zip(y, z))
+        """Range-code every block's symbols (:meth:`encode_blocks`' dict)
+        → list of (y, z) strings (v1: (y,))."""
+        return self.strings.encode(out)
 
     def entropy_encode(self, out, i):
-        """Range-code block ``i`` of ``out`` (:meth:`encode_blocks`' dict)
-        → its tuple of strings, equal to entry ``i`` of
-        :meth:`entropy_encode_all`."""
-        if not self.is_v2:
-            return (rc.encode(out["y_sym"][i],
-                              self._channel_indexes(self.y_shape),
-                              self.eb_table),)
-        return (rc.encode(self._y_order(out["y_sym"][i]),
-                          self._y_order(out["y_idx"][i]), self.gc_table),
-                rc.encode(out["z_sym"][i],
-                          self._channel_indexes(self.z_shape),
-                          self.eb_table))
-
-    @property
-    def _sym_keys(self):
-        """Per-block host outputs of the canonical passes."""
-        return ("z_sym", "y_sym", "y_idx") if self.is_v2 else ("y_sym",)
+        """Block ``i``'s strings: entry ``i`` of :meth:`entropy_encode_all`."""
+        return self.strings.encode_one(out, i)
 
     # -- encode ------------------------------------------------------------
 
@@ -496,8 +432,8 @@ class BlockCodec:
 
     def canonical_chunk(self, pts, n_valid, lane=None):
         """One chunk's symbols and its decoder-canonical x_hat: voxelize →
-        symbols → decode_z / decode_y (v1: decode). Rows past ``n_valid``
-        are padding.
+        the model's ``canonical`` pass on ``lane`` (:class:`_Lane`; the
+        first device's when None). Rows past ``n_valid`` are padding.
 
         :return: dict(x [N, B, B, B, 1] occupancy, y_sym, x_hat and, v2,
             z_sym, y_idx) on the device.
@@ -508,20 +444,7 @@ class BlockCodec:
             raise ValueError("block(s) contain duplicate voxel coordinates; "
                              "dedup inputs (see cli/compress.py)")
         deterministic_convs()
-        model = (lane or self._lanes[0]).model
-        if self.is_cw:
-            # the slice chain, padding rows' symbols zero as the decoder's
-            res = model.encode_syms(x, n_valid)
-            res["x_hat"] = model.decode_y(res.pop("y_hat"))
-        else:
-            res = model.encode_syms(x)
-            # canonical decoder feed: padding rows are zero symbols, as
-            # the decoder pads them
-            for key in res:
-                res[key][n_valid:] = 0
-            if self.is_v2:
-                res["y_idx"] = self._decode_z(res["z_sym"], lane)
-            res["x_hat"] = self._decode_y(res["y_sym"], lane)
+        res = (lane or self._lanes[0]).model.canonical(x, n_valid)
         res["x"] = x
         return res
 
@@ -561,8 +484,7 @@ class BlockCodec:
         bit for bit: the same decode functions at the same batch width,
         and no row's convolutions read another row."""
         n = len(blocks)
-        budget = max(int(2 ** np.ceil(np.log2(max(len(b) for b in blocks)))),
-                     64)
+        budget = point_budget(blocks)
         points, _ = pack_points(blocks, max_points=budget)
         sent = []
         for k, (lo, hi) in enumerate(self._chunks(n)):
@@ -601,11 +523,10 @@ class BlockCodec:
                              "normal columns (x y z nx ny nz)")
         n = len(blocks)
         size = self.block_size
-        budget = max(int(2 ** np.ceil(np.log2(max(len(b) for b in blocks)))),
-                     64)
+        budget = point_budget(blocks)
         opt_names = [f"{m}_{d}" for d in max_deltas for m in opt_metrics]
         n_metrics = len(opt_names)
-        host = {k: [] for k in self._sym_keys + ("picks",)}
+        host = {k: [] for k in self.strings.keys + ("picks",)}
         occ_chunks, mask_chunks = [], [[] for _ in range(n_metrics)]
         pts_chunks = []
         chunks = self._chunks(n)
@@ -691,16 +612,6 @@ class BlockCodec:
                     q, x_hat_blocks, origins, self.block_size,
                     full_tree_limit=2_000_000))
 
-    def _d2_full_cloud_metrics(self, pts_dev, nrm_host, mask_packed,
-                               x_hat_blocks, origins, points, resolution):
-        """Exact full-cloud D2 (+D1) metrics of one candidate: NN
-        identities via banded argmin halo EDTs on the device, vote-based
-        normal transfer and f64 projections on the host."""
-        return blockwise_d2_metrics(
-            pts_dev, nrm_host, mask_packed, x_hat_blocks, origins,
-            self.block_size, resolution, points, halo=self.halo_width,
-            batch=self.halo_batch, with_d1=True)
-
     def _select_best_device(self, binstr, x_hat_points, occ_packed,
                             masks_packed, opt_names, points, resolution,
                             level, need_metrics=True, pts_dev=None,
@@ -723,9 +634,13 @@ class BlockCodec:
                     "d2 selection needs input normals"
 
                 def metric_fn(i):
-                    return self._d2_full_cloud_metrics(
+                    # NN identities by banded argmin halo EDTs on the
+                    # device; normal votes and f64 projections on the host
+                    return blockwise_d2_metrics(
                         pts_dev, nrm_host, masks_packed[i], x_hat_points[i],
-                        origins, points, resolution)
+                        origins, self.block_size, resolution, points,
+                        halo=self.halo_width, batch=self.halo_batch,
+                        with_d1=True)
             else:
                 def metric_fn(i):
                     return self._d1_full_cloud_metrics(
@@ -774,11 +689,10 @@ class BlockCodec:
         """
         n = len(blocks)
         size = self.block_size
-        budget = max(int(2 ** np.ceil(np.log2(max(len(b) for b in blocks)))),
-                     64)
+        budget = point_budget(blocks)
         flat, offsets = flatten_blocks(blocks)
         flat_dev = torch.as_tensor(pack_coords(flat, size), device=self.device)
-        host = {k: [] for k in self._sym_keys}
+        host = {k: [] for k in self.strings.keys}
         mask_chunks, picks = [], []
         with (trace.span("codec.host_sweep") as sweep,
               ThreadPoolExecutor(self.threads) as pool):
@@ -831,142 +745,95 @@ class BlockCodec:
 
     # -- decode ------------------------------------------------------------
 
-    def _round_robin(self, n, fn):
-        """``fn(lane, lo, hi)`` on every chunk of ``n`` blocks, chunk k on
-        lane k mod lanes, all dispatched before the first is fetched:
-        host (numpy) results in chunk order."""
-        lanes = self._lanes
-        outs = [fn(lanes[k % len(lanes)], lo, hi)
-                for k, (lo, hi) in enumerate(self._chunks(n))]
-        return [o.cpu().numpy() for o in outs]
-
     def decompress_blocks(self, payload, return_debug=False):
-        """payload: [(strings, threshold_idx), ...] → decoded point blocks.
+        """payload: [(strings, threshold_idx), ...] → decoded point blocks;
+        chunk k on lane k mod lanes (module docstring).
 
         Thresholding and bit-packing run on the device; only 1-bit masks
         come back to the host. ``return_debug`` also returns the decoder's
         half of the ``--debug`` harness: dict(y_sym, packed_masks [n,
         B³/8] and, v2, z_sym, y_idx).
         """
-        n = len(payload)
-        bs = self.batch_blocks
-        thr = np.array([self.thresholds[t] for _, t in payload], np.float32)
-        if self.is_cw:
-            return self._decompress_cw(payload, thr, return_debug)
-        t_z = t_dz = 0.0  # v1: no z string, no decode_z
-        with trace.span("codec.decode"):
-            if self.is_v2:
-                with trace.span("codec.z_rans") as z_rans:
-                    z_syms = rc.decode_batch(
-                        [p[0][1] for p in payload],
-                        self._channel_indexes(self.z_shape), self.eb_table,
-                        per_stream=False)
-                with trace.span("codec.decode_z") as decode_z:
-                    y_idx = np.concatenate(self._round_robin(
-                        n, lambda lane, lo, hi: self._decode_z(
-                            self._pad_rows(z_syms[lo:hi], bs, lane),
-                            lane)[:hi - lo]))
-                t_z, t_dz = z_rans.seconds, decode_z.seconds
-                with trace.span("codec.y_rans") as y_rans:
-                    y_syms = rc.decode_batch([p[0][0] for p in payload],
-                                             y_idx, self.gc_table,
-                                             per_stream=True)
-            else:
-                with trace.span("codec.y_rans") as y_rans:
-                    y_syms = rc.decode_batch(
-                        [p[0][0] for p in payload],
-                        self._channel_indexes(self.y_shape), self.eb_table,
-                        per_stream=False)
-            with trace.span("codec.decode_y") as decode_y:
-                masks = self._round_robin(n, lambda lane, lo, hi: self._masks(
-                    self._decode_y(self._pad_rows(y_syms[lo:hi], bs, lane),
-                                   lane),
-                    self._pad_rows(thr[lo:hi], bs, lane))[:hi - lo])
-            with trace.span("codec.unpack") as unpack:
-                masks = np.concatenate(masks)
-                blocks = unpack_mask_coords(masks, self.block_size)
-        logger.info("decompress_blocks(%d blocks): z rANS %.3fs, decode_z "
-                    "%.3fs, y rANS %.3fs, decode_y+masks %.3fs, unpack "
-                    "%.3fs", n, t_z, t_dz, y_rans.seconds, decode_y.seconds,
-                    unpack.seconds)
-        if not return_debug:
-            return blocks
-        debug = {"y_sym": y_syms, "packed_masks": masks}
-        if self.is_v2:
-            debug.update(z_sym=z_syms, y_idx=y_idx)
-        return blocks, debug
-
-    def _decompress_cw(self, payload, thr, return_debug):
-        """:meth:`decompress_blocks` of the channel-wise model: z, then
-        per slice and chunk (chunk k on lane k mod lanes) μ and the σ rows
-        on the device, the rows to the host, the range decode of the
-        chunk's blocks' slice (one resumable decoder over the cloud's y
-        strings), ŷ on the device; last the synthesis of every chunk."""
         n, bs = len(payload), self.batch_blocks
+        thr = np.array([self.thresholds[t] for _, t in payload], np.float32)
+        strings, fmt = [p[0] for p in payload], self.strings
         chunks = self._chunks(n)
         lanes = [self._lanes[k % len(self._lanes)]
                  for k in range(len(chunks))]
         slices = self.model.num_slices
+        # a single-slice model's steps are timed as its record names them
+        params, rans, lrp = (
+            ("codec.slice_params", "codec.slice_rans", "codec.slice_lrp")
+            if slices > 1 else
+            ("codec.decode_z", "codec.y_rans", "codec.decode_y"))
+        t = collections.Counter()  # seconds by span
+
+        @contextlib.contextmanager
+        def timed(name):
+            with trace.span(name) as sp:
+                yield
+            t[name] += sp.seconds
+
+        parts, syms, rows = ([[] for _ in chunks] for _ in range(3))
         with trace.span("codec.decode"):
-            with trace.span("codec.z_rans") as z_rans:
-                z_syms = rc.decode_batch(
-                    [p[0][1] for p in payload],
-                    self._channel_indexes(self.z_shape), self.eb_table,
-                    per_stream=False)
-            with trace.span("codec.decode_z") as decode_z:
+            with timed("codec.z_rans"):
+                z_syms = fmt.decode_z(strings)
+            with timed("codec.decode_z"):
                 deterministic_convs()
                 hypers = [lane.model.decode_hyper(
                     self._pad_rows(z_syms[lo:hi], bs, lane))
                     for lane, (lo, hi) in zip(lanes, chunks)]
-            dec = rc.BatchDecoder([p[0][0] for p in payload], self.gc_table)
-            y_hats = [[] for _ in chunks]
-            syms = [[] for _ in chunks]
-            idxs = [[] for _ in chunks]
-            t_params = t_rans = t_lrp = 0.0
+            dec = fmt.y_decoder(strings)
             for k in range(slices):
-                with trace.span("codec.slice_params") as params:
+                with timed(params):
                     # every chunk's μ and rows dispatched before any fetch
-                    sent = [lane.model.slice_params(hyper, y_hat, k)
-                            for lane, hyper, y_hat in zip(lanes, hypers,
-                                                          y_hats)]
-                t_params += params.seconds
+                    sent = [lane.model.slice_params(hyper, part, k)
+                            for lane, hyper, part in zip(lanes, hypers,
+                                                         parts)]
                 for c, (lane, (lo, hi)) in enumerate(zip(lanes, chunks)):
                     mu, idx = sent[c]
-                    with trace.span("codec.slice_params") as params:
-                        idx = idx[:hi - lo].cpu().numpy()
-                    with trace.span("codec.slice_rans") as rans:
-                        sym = dec.decode(idx.reshape(hi - lo, -1), lo,
-                                         hi).reshape(idx.shape)
-                    with trace.span("codec.slice_lrp") as lrp:
-                        y_hats[c].append(lane.model.slice_lrp(
-                            hypers[c], y_hats[c], k, mu,
+                    with timed(params):
+                        idx = fmt.host_rows(idx, hi - lo)
+                    with timed(rans):
+                        sym = dec.decode(idx, lo, hi)
+                    with timed(lrp):
+                        parts[c].append(lane.model.slice_lrp(
+                            hypers[c], parts[c], k, mu,
                             self._pad_rows(sym, bs, lane)))
-                    t_params += params.seconds
-                    t_rans += rans.seconds
-                    t_lrp += lrp.seconds
                     syms[c].append(sym)
-                    idxs[c].append(idx)
+                    rows[c].append(idx)
                 trace.count("slices.decoded", len(chunks))
-            with trace.span("codec.decode_y") as decode_y:
+            with timed("codec.decode_y"):
                 masks = [self._masks(
-                    lane.model.decode_y(torch.cat(y_hat, 1)),
+                    lane.model.decode_y(torch.cat(part, 1)),
                     self._pad_rows(thr[lo:hi], bs, lane))[:hi - lo]
-                    for lane, y_hat, (lo, hi) in zip(lanes, y_hats, chunks)]
+                    for lane, part, (lo, hi) in zip(lanes, parts, chunks)]
                 masks = [m.cpu().numpy() for m in masks]
-            with trace.span("codec.unpack") as unpack:
+            with timed("codec.unpack"):
                 masks = np.concatenate(masks)
                 blocks = unpack_mask_coords(masks, self.block_size)
-        logger.info("decompress_blocks_cw(%d blocks): z rANS %.3fs, "
-                    "decode_z %.3fs, slice params %.3fs, slice rANS %.3fs, "
-                    "slice lrp %.3fs, decode_y+masks %.3fs, unpack %.3fs",
-                    n, z_rans.seconds, decode_z.seconds, t_params, t_rans,
-                    t_lrp, decode_y.seconds, unpack.seconds)
+        if slices > 1:
+            logger.info("decompress_blocks_cw(%d blocks): z rANS %.3fs, "
+                        "decode_z %.3fs, slice params %.3fs, slice rANS "
+                        "%.3fs, slice lrp %.3fs, decode_y+masks %.3fs, "
+                        "unpack %.3fs", n, t["codec.z_rans"],
+                        t["codec.decode_z"], t[params], t[rans], t[lrp],
+                        t["codec.decode_y"], t["codec.unpack"])
+        else:
+            logger.info("decompress_blocks(%d blocks): z rANS %.3fs, "
+                        "decode_z %.3fs, y rANS %.3fs, decode_y+masks "
+                        "%.3fs, unpack %.3fs", n, t["codec.z_rans"],
+                        t["codec.decode_z"], t[rans], t["codec.decode_y"],
+                        t["codec.unpack"])
         if not return_debug:
             return blocks
 
-        def ndhwc(parts):
-            return np.moveaxis(np.concatenate(
-                [np.concatenate(p, 1) for p in parts]), 1, -1)
+        def joined(per_chunk):
+            return fmt.ndhwc(np.concatenate(
+                [np.concatenate(p, 1) for p in per_chunk]))
 
-        return blocks, {"y_sym": ndhwc(syms), "packed_masks": masks,
-                        "z_sym": z_syms, "y_idx": ndhwc(idxs)}
+        debug = {"z_sym": z_syms, "y_sym": joined(syms),
+                 "y_idx": joined(rows)}
+        debug = {k: debug[k] for k in fmt.keys}
+        debug["packed_masks"] = masks
+        return blocks, debug

@@ -5,9 +5,15 @@ Port of ``CompressionModelV1`` (factorized prior on y,
 ``CompressionModelV2`` (scale hyperprior, ``:83-186``): ``forward`` is the
 JAX ``__call__`` (the training graph, noise quantization, likelihoods for
 the RD loss), ``aux_loss`` the factorized prior's; ``encode_syms`` /
-``decode`` / ``decode_z`` / ``decode_y`` the inference side, and
+``decode_z`` / ``decode_y`` (V1: also ``decode``) the inference side, and
 ``encode`` the JAX fused encode (symbols plus the decoder's x_hat, made
-from those same entry points, for ``BlockCodec.encode_blocks``). Public
+by the decoder-canonical pass, for ``BlockCodec.encode_blocks``).
+
+Every model answers the block codec alike, which never asks its class:
+``canonical(x, n_valid)`` on the encoder; on the decoder
+``decode_hyper(z_sym)``, per slice k < ``num_slices`` ``slice_params``
+(μ or None, the y rows or None: the channels') and ``slice_lrp``, then
+``decode_y`` of the slices joined along dim 1. V1 and V2: one slice. Public
 tensors keep the JAX package's NDHWC layouts — x ``[N, B, B, B, 1]``,
 latents and symbols ``[N, b, b, b, C]``, x_hat ``[N, B, B, B, 1]`` f32 —
 and are converted to NCDHW once per call. Quantization is f32.
@@ -59,7 +65,21 @@ def _to_ndhwc(x):
     return x.permute(0, 2, 3, 4, 1).contiguous()
 
 
-class CompressionModelV1(nn.Module):
+class _OneSlice:
+    """The decode protocol of a model that codes y in one slice."""
+
+    num_slices = 1
+
+    def slice_params(self, hyper, y_hats, k):
+        """(no μ, the y rows: the hyper output)."""
+        return None, hyper
+
+    def slice_lrp(self, hyper, y_hats, k, mu, sym):
+        """The decoded symbols are what ``decode_y`` takes."""
+        return sym
+
+
+class CompressionModelV1(_OneSlice, nn.Module):
     """Autoencoder + learned factorized prior on y (no hyperprior). The
     JAX package runs it without a conv backend choice: its V1 stacks have
     no residual tails."""
@@ -92,22 +112,38 @@ class CompressionModelV1(nn.Module):
         return {"y_sym": self.entropy_bottleneck.quantize_symbols(y)}
 
     @torch.no_grad()
+    def canonical(self, x, n_valid):
+        """x [N,B,B,B,1] → dict(y_sym, x_hat): the encoder's
+        decoder-canonical pass, rows from ``n_valid`` on padding."""
+        res = self.encode_syms(x)
+        res["y_sym"][n_valid:] = 0  # zero symbols, as the decoder pads
+        res["x_hat"] = self.decode_y(res["y_sym"])
+        return res
+
+    @torch.no_grad()
     def encode(self, x):
         """x [N,B,B,B,1] → dict(y_sym int32, x_hat): the symbols and the
         decoder's reconstruction of them (JAX ``encode``)."""
-        out = self.encode_syms(x)
-        out["x_hat"] = self.decode(out["y_sym"])
-        return out
+        return self.canonical(x, len(x))
+
+    def decode_hyper(self, z_sym):
+        """No z: no hyper output, and the y rows are the channels'."""
+        return None
+
+    def pack_fused_weights(self):
+        """No fused tails: V1 stacks have no residual tails."""
 
     @torch.no_grad()
-    def decode(self, y_sym):
+    def decode_y(self, y_sym):
         """y symbols → x_hat [N,B,B,B,1] f32 in [0, 1]."""
         y_hat = self.entropy_bottleneck.dequantize_symbols(y_sym)
         x_hat = _to_ndhwc(self.synthesis_t(_to_ncdhw(y_hat))).float()
         return torch.clamp(x_hat, 0.0, 1.0)
 
+    decode = decode_y  # JAX's name
 
-class CompressionModelV2(nn.Module):
+
+class CompressionModelV2(_OneSlice, nn.Module):
     """Autoencoder + hyperprior: z = H_a(y) coded with a factorized prior,
     σ = H_s(ẑ) conditions a Gaussian model on y."""
 
@@ -183,14 +219,30 @@ class CompressionModelV2(nn.Module):
         }
 
     @torch.no_grad()
+    def canonical(self, x, n_valid):
+        """x [N,B,B,B,1] → dict(z_sym, y_sym, y_idx uint8, x_hat): the
+        encoder's decoder-canonical pass (the decoder's
+        :meth:`decode_hyper` and :meth:`decode_y`), rows from ``n_valid``
+        on padding."""
+        res = self.encode_syms(x)
+        for v in res.values():  # zero symbols, as the decoder pads
+            v[n_valid:] = 0
+        res["y_idx"] = self.decode_hyper(res["z_sym"])
+        res["x_hat"] = self.decode_y(res["y_sym"])
+        return res
+
+    @torch.no_grad()
     def encode(self, x):
         """x [N,B,B,B,1] → dict(z_sym, y_sym, y_idx int32, x_hat): the
         symbols with the decoder's recomputation of the y CDF-row indexes
-        (``decode_z``) and of x_hat (``decode_y``), as JAX ``encode``."""
-        out = self.encode_syms(x)
-        out["y_idx"] = self.decode_z(out["z_sym"])[1]
-        out["x_hat"] = self.decode_y(out["y_sym"])
+        and of x_hat (:meth:`canonical`), as JAX ``encode``."""
+        out = self.canonical(x, len(x))
+        out["y_idx"] = out["y_idx"].to(torch.int32)
         return out
+
+    def decode_hyper(self, z_sym):
+        """ẑ symbols → the y CDF rows (uint8, NDHWC) of :meth:`decode_z`."""
+        return self.decode_z(z_sym)[1].to(torch.uint8)
 
     @torch.no_grad()
     def decode_z(self, z_sym):
@@ -371,13 +423,11 @@ class CompressionModelCW(CompressionModelV2):
                 "y_hat": torch.cat(y_hats, 1)}
 
     @torch.no_grad()
-    def encode(self, x):
-        """x [N,B,B,B,1] → dict(z_sym, y_sym, y_idx, x_hat), as
-        :meth:`CompressionModelV2.encode`."""
-        out = self.encode_syms(x)
-        out["y_idx"] = out["y_idx"].to(torch.int32)
-        out["x_hat"] = self.decode_y(out.pop("y_hat"))
-        return out
+    def canonical(self, x, n_valid):
+        """:meth:`CompressionModelV2.canonical` through the slice chain."""
+        res = self.encode_syms(x, n_valid)
+        res["x_hat"] = self.decode_y(res.pop("y_hat"))
+        return res
 
     @torch.no_grad()
     def decode_y(self, y_hat):

@@ -36,26 +36,22 @@ this path runs the module weights through cuDNN forward convs whatever
 the model's backend (and a layer into one output channel through
 ``conv_one_out``, as the unsharded model does). Stacks with
 ``residual_mode="concat"`` are refused: JAX's sp path adds ``h + t``
-whatever the mode, which is wrong there.
+whatever the mode, which is wrong there. So is a model that codes y in
+slices (``num_slices > 1``): its symbols are the slice chain's, which this
+path does not run.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
 from pcc_geo_cnn_v2_tpu_torch.codec import deterministic_convs
-from pcc_geo_cnn_v2_tpu_torch.coding import range_coder as rc
+from pcc_geo_cnn_v2_tpu_torch.coding.strings import StringFormat
 from pcc_geo_cnn_v2_tpu_torch.models.codec_models import (
-    CompressionModelV2,
     _to_ncdhw,
     _to_ndhwc,
-)
-from pcc_geo_cnn_v2_tpu_torch.models.entropy import (
-    build_factorized_cdf,
-    build_gaussian_cdf,
 )
 from pcc_geo_cnn_v2_tpu_torch.models.transforms import (
     AnalysisTransformV1,
@@ -208,6 +204,12 @@ def _layer_args(layer):
             None if layer.bias is None else layer.bias.float())
 
 
+def _check_model(model):
+    if model.num_slices > 1:
+        raise NotImplementedError(f"the sp path codes y in one slice, not "
+                                  f"{model.num_slices}: no sliced models")
+
+
 def _check_stack(t):
     if isinstance(t, BlockStack):
         if t.residual_mode != "add":
@@ -231,11 +233,12 @@ def encode_syms_spatial(model, x_local, group):
         D divisible by world·16 (world·8 for V1).
     :return: the rank's slabs ``{y_sym[, z_sym]}`` int32, NDHWC: V1
         ``round(y - medians)``; V2 ``round(y)`` and ``round(z -
-        medians)``.
+        medians)``. A sliced model raises NotImplementedError.
     """
-    is_v2 = isinstance(model, CompressionModelV2)
+    _check_model(model)
+    has_z = hasattr(model, "hyper_analysis_t")
     _check_stack(model.analysis_t)
-    factor = 16 if is_v2 else 8
+    factor = 16 if has_z else 8
     if x_local.shape[1] % factor:
         raise ValueError(f"a slab depth of {x_local.shape[1]} is not a "
                          f"multiple of {factor}")
@@ -260,7 +263,7 @@ def encode_syms_spatial(model, x_local, group):
             t = conv(h, block.Conv_1)
             y = h + conv(t, block.Conv_2)
         y = conv(y, an.Conv_0, act=False)
-    if not is_v2:
+    if not has_z:
         return {"y_sym": model.entropy_bottleneck.quantize_symbols(
             _to_ndhwc(y))}
     ha = model.hyper_analysis_t
@@ -286,14 +289,12 @@ def decode_y_spatial(model, y_sym_local, group):
         symbols.
     :return: the rank's x_hat ``[N, D/world, H, W, 1]`` f32 in [0, 1].
     """
+    _check_model(model)
     _check_stack(model.synthesis_t)
     deterministic_convs()
     device = model.entropy_bottleneck.quantiles.device
-    y_sym_local = y_sym_local.to(device)
-    if isinstance(model, CompressionModelV2):
-        y_hat = model.conditional.dequantize_symbols(y_sym_local)
-    else:
-        y_hat = model.entropy_bottleneck.dequantize_symbols(y_sym_local)
+    prior = getattr(model, "conditional", model.entropy_bottleneck)
+    y_hat = prior.dequantize_symbols(y_sym_local.to(device))
 
     def deconv(h, layer):
         return F.relu(conv3d_transpose_spatial_sharded(
@@ -341,36 +342,23 @@ def gather_depth(x_local, group, axis=1):
     return torch.cat(parts, dim=axis).to(x_local.device)
 
 
-def _tables(model):
-    """The model's rANS tables: (factorized prior's, Gaussian's or None)."""
-    eb = {k: v.detach().cpu().numpy()
-          for k, v in model.entropy_bottleneck.state_dict().items()}
-    gc = None
-    if isinstance(model, CompressionModelV2):
-        gc = build_gaussian_cdf(model.conditional.scale_table,
-                                model.conditional.tail_mass)
-    return build_factorized_cdf(eb), gc
-
-
-def _channels(shape):
-    return np.broadcast_to(np.arange(shape[-1], dtype=np.int32), shape)
+def _y_rows(model, fmt, z_sym, n):
+    """The host y rows of ``n`` whole blocks: the decoder's, from z
+    unsharded (z is the block over 16), as JAX's sp round trip does."""
+    deterministic_convs()
+    hyper = model.decode_hyper(z_sym)
+    return fmt.host_rows(model.slice_params(hyper, [], 0)[1], n)
 
 
 def symbols_to_bytes(model, syms):
     """A block's whole symbols (:func:`gather_depth`) → its rANS strings
-    ``(y[, z])``, one block a row. V2 codes y under the Gaussian rows that
-    ``model.decode_z`` derives from z, unsharded (z is the block over 16),
-    as JAX's sp round trip does; V1 codes y with the factorized prior."""
-    eb, gc = _tables(model)
-    y = syms["y_sym"].cpu().numpy()
-    if gc is None:
-        return [(s,) for s in rc.encode_batch(y, _channels(y.shape[1:]), eb)]
-    deterministic_convs()
-    z = syms["z_sym"]
-    y_idx = model.decode_z(z)[1].cpu().numpy()
-    z = z.cpu().numpy()
-    return list(zip(rc.encode_batch(y, y_idx, gc),
-                    rc.encode_batch(z, _channels(z.shape[1:]), eb)))
+    ``(y[, z])``, one block a row, in the block codec's format
+    (``coding/strings.py``). A sliced model raises NotImplementedError."""
+    _check_model(model)
+    out = {k: v.cpu().numpy() for k, v in syms.items()}
+    fmt = StringFormat(model, out["y_sym"].shape[1:])
+    out["y_idx"] = _y_rows(model, fmt, syms.get("z_sym"), len(out["y_sym"]))
+    return fmt.encode(out)
 
 
 def bytes_to_symbols(model, strings, y_shape):
@@ -379,17 +367,10 @@ def bytes_to_symbols(model, strings, y_shape):
 
     :param y_shape: one block's y ``(D/8, H/8, W/8, C)``.
     """
-    eb, gc = _tables(model)
+    _check_model(model)
+    fmt = StringFormat(model, y_shape)
     device = model.entropy_bottleneck.quantiles.device
-    if gc is None:
-        y = rc.decode_batch([s[0] for s in strings], _channels(y_shape), eb,
-                            per_stream=False)
-        return {"y_sym": torch.as_tensor(y, device=device)}
-    z_shape = tuple(-(-n // 2) for n in y_shape[:3]) + (y_shape[3],)
-    z = torch.as_tensor(rc.decode_batch([s[1] for s in strings],
-                                        _channels(z_shape), eb,
-                                        per_stream=False), device=device)
-    deterministic_convs()
-    y_idx = model.decode_z(z)[1].cpu().numpy()
-    y = rc.decode_batch([s[0] for s in strings], y_idx, gc, per_stream=True)
-    return {"y_sym": torch.as_tensor(y, device=device), "z_sym": z}
+    z = torch.as_tensor(fmt.decode_z(strings), device=device)
+    rows = _y_rows(model, fmt, z, len(strings))
+    y = torch.as_tensor(fmt.y_decoder(strings).decode(rows), device=device)
+    return {k: v for k, v in (("y_sym", y), ("z_sym", z)) if k in fmt.keys}

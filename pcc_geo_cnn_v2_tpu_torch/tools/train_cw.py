@@ -171,7 +171,7 @@ def evaluate(device=None, seeds=EVAL_SEEDS, resolution=1024, level=4,
                 "blocks": len(blocks), "bpp": 8.0 * len(raw) / len(pts),
                 "d1_psnr": float(meta[0]["metrics"]["d1_psnr"]),
                 "escape_share": escape_share(syms["y_sym"], syms["y_idx"],
-                                             codec.gc_table),
+                                             codec.strings.y_table),
                 "round_trip": all(np.array_equal(a, b) for a, b in zip(
                     decoded, meta[0]["x_hat_list"])),
                 "symbols_equal": all(np.array_equal(syms[k], debug[k])

@@ -302,7 +302,7 @@ def test_y_string_order(weights, cloud, name):
     y, idx = out["y_sym"], out["y_idx"]
     if name == "c3p_cw":
         y, idx = np.moveaxis(y, -1, 1), np.moveaxis(idx, -1, 1)
-    want = rc.encode_batch(y, idx, codec.gc_table)
+    want = rc.encode_batch(y, idx, codec.strings.y_table)
     got = codec.entropy_encode_all(out)
     assert [s[0] for s in got] == want
     assert all(codec.entropy_encode(out, i) == got[i] for i in range(5))

@@ -234,7 +234,7 @@ def test_entropy_encode_matches_jax_and_the_batch_call(setup):
         batch = codec.entropy_encode_all(out)
         for i in range(len(s["blocks"])):
             got = codec.entropy_encode(out, i)
-            assert len(got) == (2 if codec.is_v2 else 1)
+            assert len(got) == (2 if codec.strings.has_z else 1)
             assert got == jc.entropy_encode(out, i) == batch[i], i
 
 
@@ -246,7 +246,7 @@ def test_return_debug_matches_the_encoder(setup):
     dec, dbg = codec.decompress_blocks(data_list[0], return_debug=True)
     assert len(codec.decompress_blocks(data_list[0])) == len(dec)
     keys = {"y_sym", "packed_masks"} | (
-        {"z_sym", "y_idx"} if codec.is_v2 else set())
+        {"z_sym", "y_idx"} if codec.strings.has_z else set())
     assert set(dbg) == keys
     for k in keys - {"packed_masks"}:
         np.testing.assert_array_equal(dbg[k].astype(np.int32), enc[k])

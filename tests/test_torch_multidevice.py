@@ -11,7 +11,10 @@ chunks re-sweep overflowed blocks on the first device. Against the JAX
 codec with ``devices=jax.devices()[:2]`` on the conftest's virtual mesh:
 bpp within 1% and D1 PSNR within 0.05 dB, the bounds of
 ``tests/test_torch_codec.py`` (conv sums differ in order between XLA and
-ATen). Also: the launch counter keeps every count under 8 threads.
+ATen). The round robin also runs a small c3p_cw (the same c3p weights,
+its added modules drawn by ``training.init_params``, 2 slices), whose
+decoder alternates host and lanes per slice. Also: the launch counter
+keeps every count under 8 threads.
 """
 
 import gzip
@@ -31,13 +34,16 @@ from pcc_geo_cnn_v2_tpu_torch.codec import BlockCodec
 from pcc_geo_cnn_v2_tpu_torch.coding.syntax import save_compressed_file
 from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
 from pcc_geo_cnn_v2_tpu_torch.ops import kernels
+from pcc_geo_cnn_v2_tpu_torch.training import init_params
 from pcc_geo_cnn_v2_tpu_torch.utils.octree import partition_octree
 from pcc_geo_cnn_v2_tpu_torch.utils.scansim import figure_cloud
+from pcc_geo_cnn_v2_tpu_torch.weights import params_to_jax
 
 R, LEVEL, B, BS = 128, 3, 16, 8
 CFG = dict(model="v2", num_filters=8,
            analysis="AnalysisTransformProgressiveV2",
            synthesis="SynthesisTransformProgressiveV2")
+CW_CFG = dict(CFG, model="cw", num_slices=2, slice_widths=(8, 8))
 D2 = dict(opt_metrics=("d1_mse", "d2_mse"), with_normals=True)
 BUCKET_K = 300
 
@@ -64,12 +70,16 @@ def setup():
     syn = params["params"]["synthesis_t"]
     last = sorted(k for k in syn if k.startswith("ConvTranspose"))[-1]
     syn[last]["bias"] = syn[last]["bias"] + 0.55
+    cw = init_params(build_model(CW_CFG), torch.Generator().manual_seed(0))
+    cw_params = params_to_jax(cw.state_dict())
+    cw_params["params"].update(params["params"])
     return dict(pts=pts, blocks=blocks, binstr=binstr, jm=jm, params=params,
-                single={})
+                cw_params=cw_params, single={})
 
 
-def _codec(s, **kw):
-    codec = BlockCodec(build_model(CFG), s["params"], block_size=B,
+def _codec(s, cw=False, **kw):
+    codec = BlockCodec(build_model(CW_CFG if cw else CFG),
+                       s["cw_params" if cw else "params"], block_size=B,
                        batch_blocks=BS, **kw)
     codec.bucket_k = BUCKET_K  # after construction: every lane reads it
     return codec
@@ -85,7 +95,8 @@ def _streams(s, codec, kw):
 
 def _single(s, name, kw):
     if name not in s["single"]:
-        s["single"][name] = _streams(s, _codec(s, device="cpu"), kw)
+        s["single"][name] = _streams(
+            s, _codec(s, name.startswith("cw"), device="cpu"), kw)
     return s["single"][name]
 
 
@@ -105,18 +116,33 @@ def _record(monkeypatch, codec, method):
     return calls
 
 
+def _record_models(monkeypatch, codec, method):
+    """Wrap ``method`` of every lane's model replica: the index of the
+    lane each call ran on, in call order."""
+    calls = []
+    for i, lane in enumerate(codec._lanes):
+        real = getattr(lane.model, method)
+
+        def wrapper(*a, _i=i, _real=real, **kw):
+            calls.append(_i)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(lane.model, method, wrapper)
+    return calls
+
+
 @pytest.mark.parametrize("n, name, kw", [(2, "d1", {}), (3, "d1", {}),
-                                         (2, "d1+d2", D2)],
-                         ids=["2-d1", "3-d1", "2-d1+d2"])
+                                         (2, "d1+d2", D2), (2, "cw-d1", {})],
+                         ids=["2-d1", "3-d1", "2-d1+d2", "2-cw-d1"])
 def test_round_robin_gives_the_single_device_streams(setup, monkeypatch,
                                                      caplog, n, name, kw):
     s = setup
     raw1, _, meta1 = _single(s, name, kw)
-    codec = _codec(s, devices=["cpu"] * n)
+    codec = _codec(s, name.startswith("cw"), devices=["cpu"] * n)
     assert len(codec._lanes) == n and codec.devices == [
         torch.device("cpu")] * n
     enc = _record(monkeypatch, codec, "_dispatch_chunk")
-    dec = _record(monkeypatch, codec, "_decode_y")
+    dec = _record_models(monkeypatch, codec, "decode_y")
     with caplog.at_level("INFO", logger="pcc_geo_cnn_v2_tpu_torch.codec"):
         raw, data_list, metadata = _streams(s, codec, kw)
     assert any("overflow" in r.message for r in caplog.records)

@@ -23,7 +23,8 @@ decodes from the bytes alone (``decode_z`` unsharded) and decodes y
 sharded: symbols equal, the decoder's x_hat bit-equal to the encoder's,
 masks at 0.51 equal. At world 1 the sharded encode and decode equal the
 unsharded ones bit for bit. Refusals: an indivisible depth, a ``concat``
-model and a halo deeper than a slab raise on every rank.
+model and a halo deeper than a slab raise on every rank; a model that
+codes y in slices (c3p_cw) is refused by every entry point.
 """
 
 import multiprocessing
@@ -40,7 +41,7 @@ import torch.distributed as dist
 from pcc_geo_cnn_v2_tpu.models.configs import build_model as jax_build
 from pcc_geo_cnn_v2_tpu.parallel import spatial as jsp
 from pcc_geo_cnn_v2_tpu.parallel.mesh import make_mesh
-from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
+from pcc_geo_cnn_v2_tpu_torch.models.configs import MODEL_CONFIGS, build_model
 from pcc_geo_cnn_v2_tpu_torch.models import transforms as tr
 from pcc_geo_cnn_v2_tpu_torch.models.codec_models import CompressionModelV2
 from pcc_geo_cnn_v2_tpu_torch.models.transforms import Conv, ConvTranspose
@@ -390,6 +391,22 @@ def test_refusals_raise_on_every_rank(ranks, case, error, words):
     for o in ranks["outs"][:2]:
         got_error, msg = o["refusals"][case]
         assert got_error == error and words in msg, (case, got_error, msg)
+
+
+@pytest.mark.parametrize("entry", ["encode_syms_spatial", "decode_y_spatial",
+                                   "symbols_to_bytes", "bytes_to_symbols"])
+def test_a_sliced_model_is_refused(entry):
+    """c3p_cw's symbols are its slice chain's: the sp path, which would
+    code them as c3p's, raises before any exchange (no group needed)."""
+    model = build_model(dict(MODEL_CONFIGS["c3p_cw"], num_filters=8,
+                             num_slices=2, slice_widths=(8, 8)))
+    y = torch.zeros(1, 2, 2, 2, 8, dtype=torch.int32)
+    args = {"encode_syms_spatial": (torch.zeros(1, 16, 16, 16, 1), None),
+            "decode_y_spatial": (y, None),
+            "symbols_to_bytes": ({"y_sym": y, "z_sym": y[:, :1, :1, :1]},),
+            "bytes_to_symbols": ([(b"", b"")], (2, 2, 2, 8))}[entry]
+    with pytest.raises(NotImplementedError, match="one slice, not 2"):
+        getattr(spatial, entry)(model, *args)
 
 
 def test_the_halo_widths_are_jax_s():
