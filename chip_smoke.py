@@ -59,8 +59,9 @@ exit):
    ``decompress_blocks``. The decoded blocks must equal the encoder's
    embedded reconstruction bit for bit, the encoder's device D1 PSNR must
    equal a host KD-tree D1 PSNR of the decoded cloud, K1 and K2 must have
-   launched, and ``conv_one_out`` once a chunk in the encoder's canonical
-   decode and once in the decoder's.
+   launched, ``conv_one_out`` once a chunk in the encoder's canonical
+   decode and once in the decoder's, and ``conv_fwd`` ``FWD_A_CHUNK``
+   times a chunk in each.
 7. Path A, D2 encode with normals: ``opt_metrics=("d1_mse", "d2_mse"),
    with_normals=True`` → two containers, each decoded bit-exactly; the d1
    stream's bytes equal phase 6's; point by point, every neighbour the
@@ -231,7 +232,8 @@ exit):
    the decoded PLY equals phase 6's decoded cloud, and the dump's x_hat
    (the fused ``encode``) equals the canonical x_hat of every chunk bit for
    bit; the launches are phase 6's, and ``conv_one_out`` once more a chunk
-   (the dump's encode).
+   and ``conv_fwd`` ``FWD_A_CHUNK`` times more a chunk (the dump's
+   encode).
 23. ``conv_one_out`` (``csrc/conv_one_out.cu``: the synthesis transforms'
    last layer, one output channel) at c2's k9 stride-2 32 -> 1
    (``ConvTranspose_2``, the committed ``rd/c2/2.00e-04`` weights) and
@@ -257,13 +259,28 @@ exit):
    ``Trainer.step_blocks`` from one state twice (c3p, batch 32, under
    ``torch.use_deterministic_algorithms(True)``):
    parameters bit-equal, ``conv_wgrad`` launched once a routed layer a
-   step and no other kernel; and 0 times in an encode and decode of the
-   cut.
+   step and no other kernel (``conv_fwd`` and ``conv_one_out`` 0); and 0
+   times in an encode and decode of the cut.
+25. ``conv_fwd`` (``csrc/conv_fwd.cu``: the codec's stride-1 k3 synthesis
+   tails, 16 -> 16 at 64^3 and 32 -> 32 at 32^3) on the activations
+   entering each routed layer in a ``decode_y`` of the cloud's first 128
+   blocks (the benchmark's chunk; the committed c3p weights): launched
+   ``FWD_A_CHUNK`` times in that ``decode_y``; each layer's kernel against
+   ``F.conv3d`` of the padded input (cuDNN under ``deterministic_convs``:
+   bit-equal, or within ``FWD_TOL`` of the largest |value|), its fused ReLU
+   exact, the module's no-graph call equal to the kernel's, the plain
+   version on 2 blocks; every block's output bit-equal alone, in 7-block
+   calls, moved 37 places in the batch and over two calls; the median ms
+   of a 128-block call (bursts of four) beside cuDNN's path (pad, conv +
+   bias, ReLU: ``library_ms``) and the bound. Then the encoder's
+   ``canonical_chunk`` x_hat equal to the decoder's ``decode_y`` of its
+   symbols bit for bit with the route on, and whether both equal x_hat
+   with the layers on cuDNN (the route off).
 
 The launch counts are set to 0 just before each path and read just after
 (for the bench, inside its process, around its timed window; for phase 20,
 around its in-process experiment; for phase 21, around each rd_eval
-run). Phases 12-24 print their seconds.
+run). Phases 12-25 print their seconds.
 Prints a ``kernels`` JSON line (per kernel: launches on its path and on
 every path, max error against the plain version, its median time (K1,
 K2, K3, K4 and K5 per call in bursts of four calls, so that the wrapper's
@@ -271,7 +288,8 @@ host time overlaps the kernels), the plain time, the least time the card could t
 same work and the share of it reached (K1 and K3 at the chunk and the
 rerun, K2, K4, K5), the CUDA launches of one call (K2, K3, K5) and, for K4, the
 cuDNN chain's time and ms / library; for ``conv_one_out`` its rows of
-phase 23, for ``conv_wgrad`` those of phase 24), the card line, and last
+phase 23, for ``conv_wgrad`` those of phase 24, for ``conv_fwd`` those of
+phase 25), the card line, and last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -362,9 +380,16 @@ CUT_BLOCKS = 16
 # cuDNN form within ONE_OUT_TOL of the output's largest |value| (both sum
 # ~3,000 f32 products a voxel at k9, in other orders)
 ONE_OUT_BLOCKS, ONE_OUT_TOL = 128, 1e-5
+# phase 25: conv_fwd on the activations entering the stride-1 k3 synthesis
+# layers it routes in a decode_y of the cloud's first FWD_BLOCKS blocks
+# (the benchmark's chunk), FWD_A_CHUNK of them (16 -> 16 at 64^3 and 32 ->
+# 32 at 32^3, twice each); held against the layer's cuDNN form within
+# FWD_TOL of the output's largest |value| (equal bit for bit where cuDNN
+# sums in the kernel's order)
+FWD_BLOCKS, FWD_A_CHUNK, FWD_TOL = 128, 4, 1e-5
 # kernels that run only in passes that record no autograd graph: a
 # training step launches none of them, its validation passes may
-NO_GRAD_KERNELS = ("conv_one_out",)
+NO_GRAD_KERNELS = ("conv_one_out", "conv_fwd")
 # kernels that run only in training steps (weight gradients): a codec pass
 # launches none of them
 TRAIN_KERNELS = ("conv_wgrad",)
@@ -1609,7 +1634,8 @@ def check_training(device, blocks, params, drive, expect_launches, points,
             f"everything else {busy - conv:.1f} ms; conv_wgrad "
             f"{counts_fit['conv_wgrad']} times ({len(routed)} a step, once a "
             f"routed layer), no other kernel in a step, conv_one_out "
-            f"{counts_fit['conv_one_out']} times in the val pass")
+            f"{counts_fit['conv_one_out']} and conv_fwd "
+            f"{counts_fit['conv_fwd']} times in the val pass")
 
         # 4. export, read back, encode the whole cloud through K1 and K2
         tree = params_to_jax(trainer.model.state_dict())
@@ -2850,8 +2876,11 @@ def check_debug_cli(device, card, codec, points, chunk_points, blob_d1,
                      "fused_tail_slab"))
     n = len(x_hat)
     # the dump's fused encode decodes every chunk once more
-    assert counts == {**counts_d1, "conv_one_out": counts_d1["conv_one_out"]
-                      + len(codec._chunks(n))}, (counts, counts_d1)
+    chunks = len(codec._chunks(n))
+    assert counts == {**counts_d1,
+                      "conv_one_out": counts_d1["conv_one_out"] + chunks,
+                      "conv_fwd": counts_d1["conv_fwd"]
+                      + FWD_A_CHUNK * chunks}, (counts, counts_d1)
     assert keys == ["x_hat", "y_idx", "y_sym", "z_sym"], keys
     assert x_hat.shape == (n, BLOCK, BLOCK, BLOCK, 1), x_hat.shape
     t0 = time.time()
@@ -3175,12 +3204,153 @@ def check_conv_wgrad(card, device, blocks, codec_pass):
     codec_pass()
     codec_counts = dict(kernels.launches)
     assert codec_counts["conv_wgrad"] == 0, codec_counts
+    assert codec_counts["conv_fwd"] > 0, codec_counts
     log(f"a training step from one state twice: parameters bit-equal; "
         f"conv_wgrad launched {len(routed)} times a step, once a routed "
-        f"layer ({', '.join(routed)}); 0 times in a codec encode and "
-        f"decode (launches {codec_counts}) [{card}]")
+        f"layer ({', '.join(routed)}), no other kernel (conv_one_out and "
+        f"conv_fwd 0); conv_wgrad 0 times in a codec encode and decode "
+        f"(launches {codec_counts}) [{card}]")
     log(f"phase 24: {time.time() - t_phase:.1f} s")
     return rows, len(routed)
+
+
+# phase 25: conv_fwd, the codec's stride-1 k3 synthesis tails, on real
+# activations of a FWD_BLOCKS-block chunk
+
+
+def check_conv_fwd(card, device, params, chunk_points):
+    """Phase 25 (module docstring). ``chunk_points(lo, hi)`` gives a
+    chunk's point lists. Returns (one row a routed layer, the launches of
+    the chunk's ``decode_y``, whether its x_hat equals the one with the
+    layers on cuDNN)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pcc_geo_cnn_v2_tpu_torch.codec import BlockCodec, deterministic_convs
+    from pcc_geo_cnn_v2_tpu_torch.models.configs import build_model
+    from pcc_geo_cnn_v2_tpu_torch.models.transforms import Conv, ConvTranspose
+    from pcc_geo_cnn_v2_tpu_torch.ops import conv_fwd, kernels
+    from pcc_geo_cnn_v2_tpu_torch.ops.voxel import voxelize
+
+    t_phase = time.time()
+    deterministic_convs()
+    codec = BlockCodec(build_model("c3p"), params, block_size=BLOCK,
+                       batch_blocks=FWD_BLOCKS, device=device)
+    model = codec.model
+    pts = torch.cat([chunk_points(lo, lo + BATCH)
+                     for lo in range(0, FWD_BLOCKS, BATCH)])
+    # the activations entering each stride-1 k3 layer of the synthesis in
+    # one decode_y of the chunk, and the launches of that decode_y
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, name=name: seen.append((name, mod, args[0])))
+        for name, m in model.synthesis_t.named_modules()
+        if isinstance(m, (Conv, ConvTranspose)) and m.k == 3 and m.s == 1]
+    try:
+        with torch.no_grad():
+            y_sym = model.encode_syms(voxelize(pts, BLOCK))["y_sym"]
+            kernels.reset_launches()
+            model.decode_y(y_sym)
+            torch.cuda.synchronize()
+            launches = kernels.launches["conv_fwd"]
+            routed = [(name, m, x) for name, m, x in seen
+                      if conv_fwd.routes(x, m.weight, m.k, m.s)]
+    finally:
+        for h in hooks:
+            h.remove()
+    assert launches == len(routed) == FWD_A_CHUNK, (launches, routed)
+    rows = []
+    for name, layer, x in routed:
+        n, cin, size = x.shape[0], x.shape[1], tuple(x.shape[2:])
+        w, b = layer.weight.detach(), layer.bias.detach()
+        cout = w.shape[0]
+        table = conv_fwd.pack_weights(w)
+
+        def kernel(xs=x):
+            return conv_fwd.conv3d(xs, table, b, relu=True)
+
+        def library():
+            return F.relu(F.conv3d(F.pad(x, (1, 1) * 3), w, b))
+
+        with torch.no_grad():
+            got = conv_fwd.conv3d(x, table, b)
+            want = F.conv3d(F.pad(x, (1, 1) * 3), w, b)
+            equal = bool(torch.equal(got, want))
+            err = float((got - want).abs().max() / want.abs().max())
+            assert err <= FWD_TOL, (name, err)
+            got_r = kernel()
+            assert torch.equal(got_r, F.relu(got)), f"{name}: ReLU"
+            equal_r = bool(torch.equal(got_r, library()))
+            # the module routes its no-graph calls through the kernel
+            assert torch.equal(layer(x, relu=True), got_r), name
+            plain = conv_fwd.conv3d_plain(x[:2], table, b, relu=True)
+            err_plain = float((got_r[:2] - plain).abs().max()
+                              / plain.abs().max())
+            assert err_plain <= FWD_TOL, (name, err_plain)
+            # every output alone, in 7-block calls and moved to another
+            # place in the batch: bit for bit the FWD_BLOCKS-block call's
+            for i in (0, 1, 64, n - 1):
+                assert torch.equal(kernel(x[i:i + 1]), got_r[i:i + 1]), \
+                    f"{name}: block {i} alone differs"
+            for lo in range(0, n, 7):
+                assert torch.equal(kernel(x[lo:lo + 7]), got_r[lo:lo + 7]), \
+                    f"{name}: blocks {lo}.. in a 7-block call differ"
+            rolled = kernel(torch.roll(x, 37, 0).contiguous())
+            assert torch.equal(rolled, torch.roll(got_r, 37, 0)), \
+                f"{name}: blocks moved in the batch differ"
+            assert torch.equal(kernel(), got_r), f"{name}: two calls differ"
+            ms = time_ms(kernel, 10, burst=4)
+            library_ms = time_ms(library, 5, burst=4)
+        flops = 2 * 27 * cin * cout * x[:, 0].numel()
+        nbytes = 4 * (x.numel() + got.numel() + w.numel())
+        bound_ms, bound_by = bound(nbytes, 0, flops)
+        row = {"layer": name, "cin": cin, "cout": cout, "size": size,
+               "blocks": n, "ms": ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / ms, "tflops": flops / ms / 1e9,
+               "library_tflops": flops / library_ms / 1e9,
+               "equal_to_library": equal and equal_r,
+               "max_err_of_max": err, "plain_err_of_max": err_plain}
+        rows.append(row)
+        log(f"conv_fwd {name} ({cin} -> {cout} at {size}, {n} blocks, "
+            f"{flops / 1e9:.1f} GFLOP): {ms:.4f} ms ({row['tflops']:.2f} "
+            f"TFLOP/s), cuDNN layer (pad, conv + bias, ReLU) "
+            f"{library_ms:.4f} ms ({library_ms / ms:.2f}x, "
+            f"{row['library_tflops']:.2f} TFLOP/s), bound {bound_ms:.4f} ms "
+            f"by {bound_by} ({100 * row['bound_share']:.1f}% reached); "
+            f"bit-equal to cuDNN {equal} (with the ReLU {equal_r}; max "
+            f"|err| / max |value| {err:.3g}), {err_plain:.3g} against the "
+            f"plain version; batch widths 1, 7 and {n}, moved blocks and two "
+            f"calls bit-equal [{card}]")
+        del got, want, got_r, plain, rolled
+    del routed, seen
+    # the encoder's canonical x_hat and the decoder's of the same symbols,
+    # with the route on; and against the layers on cuDNN (the route off)
+    with torch.no_grad():
+        enc = codec.canonical_chunk(pts, FWD_BLOCKS)
+        kernels.reset_launches()
+        x_dec = model.decode_y(enc["y_sym"])
+        torch.cuda.synchronize()
+        assert kernels.launches["conv_fwd"] == FWD_A_CHUNK
+        assert torch.equal(enc["x_hat"][:FWD_BLOCKS], x_dec), \
+            "encoder and decoder x_hat differ with the route on"
+        routes = conv_fwd.routes
+        conv_fwd.routes = lambda *a: False
+        try:
+            kernels.reset_launches()
+            x_cudnn = model.decode_y(enc["y_sym"])
+            assert kernels.launches["conv_fwd"] == 0
+        finally:
+            conv_fwd.routes = routes
+        same = bool(torch.equal(x_cudnn, x_dec))
+        diff = int((x_cudnn != x_dec).sum())
+    log(f"conv_fwd in a decode_y of {FWD_BLOCKS} blocks: {launches} "
+        f"launches ({', '.join(r['layer'] for r in rows)}); encoder "
+        f"(canonical_chunk) and decoder x_hat bit-equal with the route on; "
+        f"x_hat with the layers on cuDNN bit-equal {same} ({diff} values "
+        f"differ) [{card}]")
+    log(f"phase 25: {time.time() - t_phase:.1f} s")
+    return rows, launches, same
 
 
 def main():
@@ -3380,12 +3550,15 @@ def run(device):
         f"({t_enc:.2f} s), decode {len(blocks) / t_dec:.2f} blocks/s "
         f"({t_dec:.2f} s); launches {counts_d1}")
     expect_launches("the d1 path", counts_d1,
-                    ("bucket_colsums", "halo_edt", "conv_one_out"),
+                    ("bucket_colsums", "halo_edt", "conv_one_out",
+                     "conv_fwd"),
                     ("bucket_colsums_d2", "edt_sweep") + TRAIN_KERNELS)
     # the synthesis' last layer: one launch a chunk in the encoder's
-    # canonical decode and one in the decoder's
+    # canonical decode and one in the decoder's; its routed tails
+    # FWD_A_CHUNK a chunk in each
     n_chunks = -(-len(blocks) // BATCH)
     assert counts_d1["conv_one_out"] == 2 * n_chunks, counts_d1
+    assert counts_d1["conv_fwd"] == 2 * n_chunks * FWD_A_CHUNK, counts_d1
 
     # phase 7: path A, D2 encode with normals on K3
     blobs, metadata, decoded, counts_a, t_enc, t_dec = drive(
@@ -3723,6 +3896,12 @@ def run(device):
     wgrad, wgrad_step = check_conv_wgrad(card, device, blocks,
                                          lambda: drive(codec, cloud=cut))
 
+    # phase 25: conv_fwd on real activations of the first 128 blocks
+    torch.cuda.empty_cache()
+    fwd, fwd_chunk, fwd_same = check_conv_fwd(
+        card, device, params,
+        lambda lo, hi: codec.chunk_points(flat_dev, offsets, lo, hi, budget))
+
     by_path = {"d1": counts_d1, "A": counts_a, "B": counts_b, "C": counts_c,
                "C_bf16": counts_cb, "c2": counts_v1["c2"],
                "c1": counts_v1["c1"], "host_fixed": counts_hf,
@@ -3772,6 +3951,13 @@ def run(device):
                  "replaces": None, "launches": wgrad_step,
                  "path": "a c3p training step", "shapes": wgrad,
                  "launches_by_path": {k: v.get("conv_wgrad")
+                                      for k, v in by_path.items()}})
+    rows.append({"name": "conv_fwd", "route": "cuda",
+                 "source": "pcc_geo_cnn_v2_tpu_torch/csrc/conv_fwd.cu",
+                 "replaces": None, "launches": fwd_chunk,
+                 "path": f"a decode_y of {FWD_BLOCKS} blocks",
+                 "x_hat_equal_to_cudnn": fwd_same, "shapes": fwd,
+                 "launches_by_path": {k: v.get("conv_fwd")
                                       for k, v in by_path.items()}})
     print(json.dumps({"kernels": rows}))
     print(card)

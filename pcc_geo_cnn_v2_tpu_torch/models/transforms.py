@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pcc_geo_cnn_v2_tpu_torch.ops import conv_one_out, conv_wgrad
+from pcc_geo_cnn_v2_tpu_torch.ops import conv_fwd, conv_one_out, conv_wgrad
 from pcc_geo_cnn_v2_tpu_torch.utils import trace
 
 __all__ = ["Conv", "ConvTranspose", "subpixel_conv_transpose",
@@ -88,11 +88,10 @@ def _add_bias(y, bias):
     return y if bias is None else y + bias.view(1, -1, 1, 1, 1)
 
 
-class Conv(nn.Module):
-    """flax ``nn.Conv(padding="SAME")`` on NCDHW; weight OIDHW. Where
-    ``conv_wgrad.routes`` says so (a recorded graph, f32 on the card, k3
-    stride 1 at the channels it has), the weight gradient comes from the
-    hand-written ``conv_wgrad`` in place of cuDNN's deterministic one."""
+class _Layer(nn.Module):
+    """What :class:`Conv` and :class:`ConvTranspose` share: the parameters
+    (weight OIDHW, bias) and the kernels' weight tables cached on the
+    layer."""
 
     def __init__(self, cin, cout, kernel=3, stride=1, bias=True, dtype=None):
         super().__init__()
@@ -101,17 +100,56 @@ class Conv(nn.Module):
                                                kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
-    def forward(self, x, dtype=None):
-        """:param dtype: compute type of this call (default: the layer's)."""
+    def _packed(self, slot, weight, pack):
+        """``pack(weight)``, packed once and again after the weight was
+        written or moved; complete on the card when returned, as other
+        threads' streams read it."""
+        key = (weight.data_ptr(), weight._version, str(weight.device))
+        hit = self.__dict__.get(slot)
+        if hit is None or hit[0] != key:
+            table = pack(weight)
+            if table.is_cuda:
+                torch.cuda.current_stream(table.device).synchronize()
+            self.__dict__[slot] = hit = (key, table)
+        return hit[1]
+
+    def _conv_fwd(self, x, weight, bias, relu):
+        """The stride-1 k3 layer on ``conv_fwd`` (where it routes)."""
+        return conv_fwd.conv3d(
+            x, self._packed("_fwd", weight, conv_fwd.pack_weights), bias,
+            relu)
+
+
+def _relu_if(y, relu):
+    return F.relu(y) if relu else y
+
+
+class Conv(_Layer):
+    """flax ``nn.Conv(padding="SAME")`` on NCDHW; weight OIDHW. Where
+    ``conv_wgrad.routes`` says so (a recorded graph, f32 on the card, k3
+    stride 1 at the channels it has), the weight gradient comes from the
+    hand-written ``conv_wgrad`` in place of cuDNN's deterministic one;
+    where ``conv_fwd.routes`` says so (no graph, f32 on the card, k3 stride
+    1 at the shapes it has), the layer runs on the hand-written
+    ``conv_fwd``."""
+
+    def forward(self, x, dtype=None, relu=False):
+        """:param dtype: compute type of this call (default: the layer's).
+        :param relu: apply the ReLU that follows the layer (inside the
+            kernel where ``conv_fwd`` takes the call)."""
         x, w, b = _cast(x, self.weight, self.bias, dtype or self.dtype)
+        if conv_fwd.routes(x, w, self.k, self.s):
+            return self._conv_fwd(x, w, b, relu)
         pads = []
         for n in reversed(x.shape[2:]):  # F.pad lists the last dim first
             pads.extend(same_pads(n, self.k, self.s))
         if conv_wgrad.routes(x, w, self.k, self.s):
-            return conv_wgrad.conv3d(F.pad(x, pads), w, b)
-        if x.dtype == torch.float32:
-            return F.conv3d(F.pad(x, pads), w, b, self.s)
-        return _add_bias(_conv3d(F.pad(x, pads), w, self.s), b)
+            y = conv_wgrad.conv3d(F.pad(x, pads), w, b)
+        elif x.dtype == torch.float32:
+            y = F.conv3d(F.pad(x, pads), w, b, self.s)
+        else:
+            y = _add_bias(_conv3d(F.pad(x, pads), w, self.s), b)
+        return _relu_if(y, relu)
 
 
 def _parity_taps(k, s, pad_a, r):
@@ -122,7 +160,7 @@ def _parity_taps(k, s, pad_a, r):
     return taps, ((r + taps[0] - pad_a) // s if taps else 0)
 
 
-class ConvTranspose(nn.Module):
+class ConvTranspose(_Layer):
     """flax ``nn.ConvTranspose(padding="SAME")`` on NCDHW; weight OIDHW
     holding the flax (correlation) kernel.
 
@@ -136,56 +174,49 @@ class ConvTranspose(nn.Module):
     single ``conv3d``. A layer into one output channel runs instead on
     the hand-written ``conv_one_out`` where ``conv_one_out.routes`` says
     so (f32 on the card, in a pass that records no graph): cuDNN fills one
-    column of its tile with it. At stride 1 the weight gradient of a
-    training pass comes from ``conv_wgrad`` where ``conv_wgrad.routes``
-    says so, as in :class:`Conv`.
+    column of its tile with it. At stride 1 the layer is :class:`Conv`'s
+    correlation with pads (1, 1) at k3, so it takes ``conv_fwd`` and the
+    weight gradient of ``conv_wgrad`` where they route, as :class:`Conv`
+    does.
     """
 
-    def __init__(self, cin, cout, kernel=3, stride=1, bias=True, dtype=None):
-        super().__init__()
-        self.k, self.s, self.dtype = kernel, stride, dtype
-        self.weight = nn.Parameter(torch.zeros(cout, cin, kernel, kernel,
-                                               kernel))
-        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
-
-    def forward(self, x, dtype=None):
-        """:param dtype: compute type of this call (default: the layer's)."""
+    def forward(self, x, dtype=None, relu=False):
+        """:param dtype: compute type of this call (default: the layer's).
+        :param relu: apply the ReLU that follows the layer (inside the
+            kernel where ``conv_fwd`` takes the call)."""
         k, s = self.k, self.s
         x, weight, bias = _cast(x, self.weight, self.bias,
                                 dtype or self.dtype)
         if conv_one_out.routes(x, weight, s):
             with (trace.span("transforms.conv_transpose") if s > 1
                   else contextlib.nullcontext()):
-                return conv_one_out.conv_transpose_one_out(
-                    x, self._one_out_table(weight), bias, k, s)
+                return _relu_if(conv_one_out.conv_transpose_one_out(
+                    x, self._one_out_table(weight), bias, k, s), relu)
+        if conv_fwd.routes(x, weight, k, s):
+            return self._conv_fwd(x, weight, bias, relu)
         pad_a, pad_b = transpose_pads(k, s)
         if s == 1:
             xp = F.pad(x, (pad_a, pad_b) * 3)
             if conv_wgrad.routes(x, weight, k, s):
-                return conv_wgrad.conv3d(xp, weight, bias)
-            if x.dtype == torch.float32:
-                return F.conv3d(xp, weight, bias)
-            return _add_bias(_conv3d(xp, weight), bias)
+                y = conv_wgrad.conv3d(xp, weight, bias)
+            elif x.dtype == torch.float32:
+                y = F.conv3d(xp, weight, bias)
+            else:
+                y = _add_bias(_conv3d(xp, weight), bias)
+            return _relu_if(y, relu)
         outs = [(n - 1) * s + pad_a + pad_b - k + 2 for n in x.shape[2:]]
         # a span in passes that record no graph (the codec's): in training
         # the layer's backward kernels would fall outside it
         with (contextlib.nullcontext() if torch.is_grad_enabled()
               else trace.span("transforms.conv_transpose")):
-            return _add_bias(subpixel_conv_transpose(x, weight, s, outs),
-                             bias)
+            y = _add_bias(subpixel_conv_transpose(x, weight, s, outs), bias)
+        return _relu_if(y, relu)
 
     def _one_out_table(self, weight):
-        """``conv_one_out``'s packed table of ``weight``, packed once and
-        again after the weight was written or moved; complete on the card
-        when returned, as other threads' streams read it."""
-        key = (weight.data_ptr(), weight._version, str(weight.device))
-        hit = self.__dict__.get("_one_out")
-        if hit is None or hit[0] != key:
-            table = conv_one_out.pack_weights(weight, self.s)
-            if table.is_cuda:
-                torch.cuda.current_stream(table.device).synchronize()
-            self.__dict__["_one_out"] = hit = (key, table)
-        return hit[1]
+        """``conv_one_out``'s packed table of ``weight`` (see
+        :meth:`_packed`)."""
+        return self._packed("_one_out", weight,
+                            lambda w: conv_one_out.pack_weights(w, self.s))
 
 
 def subpixel_conv_transpose(x, weight, s, outs, shifts=(0, 0, 0)):
@@ -281,9 +312,9 @@ class AnalysisBlock(nn.Module):
         self.Conv_2 = Conv(filters, filters, kernel, dtype=dtype)
 
     def forward(self, x):
-        h = F.relu(self.Conv_0(x))
-        t = F.relu(self.Conv_1(h))
-        return _skip(h, F.relu(self.Conv_2(t)), self.residual_mode)
+        h = self.Conv_0(x, relu=True)
+        t = self.Conv_1(h, relu=True)
+        return _skip(h, self.Conv_2(t, relu=True), self.residual_mode)
 
 
 class SynthesisBlock(nn.Module):
@@ -302,9 +333,10 @@ class SynthesisBlock(nn.Module):
                                              dtype=dtype)
 
     def forward(self, x):
-        h = F.relu(self.ConvTranspose_0(x))
-        t = F.relu(self.ConvTranspose_1(h))
-        return _skip(h, F.relu(self.ConvTranspose_2(t)), self.residual_mode)
+        h = self.ConvTranspose_0(x, relu=True)
+        t = self.ConvTranspose_1(h, relu=True)
+        return _skip(h, self.ConvTranspose_2(t, relu=True),
+                     self.residual_mode)
 
 
 class BlockStack(nn.Module):

@@ -72,6 +72,11 @@ KERNELS = {
         "pcc_conv_wgrad": [_P] * 4 + [_I] * 7 + [_P],
         "pcc_conv_wgrad_geometry": [_I, _I, _P],
     }),
+    # no TPU kernel: the codec's stride-1 k3 synthesis tails
+    # (ops/conv_fwd.py)
+    "conv_fwd": ("conv_fwd.cu", {
+        "pcc_conv_fwd": [_P] * 4 + [_I] * 7 + [_P],
+    }),
 }
 
 
